@@ -1,20 +1,19 @@
 """Quality-evidence runs: train each family on synthetic data with a known
 planted structure and report final eval metrics (JSON lines).
 
-These are the framework's "does it actually learn, at scale, on the real
-chip" proof — the reference's dataset-specific AUC targets (BASELINE.md)
+These are the framework's "does it actually learn, at scale, on the
+device" proof — the reference's dataset-specific AUC targets (BASELINE.md)
 need the real downloads; the synthetic ceilings here are known by
 construction and must be approached, not just beaten trivially.
 
 Final numbers are certified with the EXACT (sort-based) AUC
 (core.metrics.exact_auc / evaluate(exact=True) / link_prediction_auc):
 the 8192-bin streaming histogram's ≲2e-3 error is the same order as the
-model-to-model deltas these rows exist to rank (VERDICT r2 weak #3).
+model-to-model deltas these rows exist to rank.
 """
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -61,13 +60,12 @@ def _run_ctr_family(name, model_cls, steps, seeds):
         state = tr.init_state(
             lambda: init_model(model, {k: v[:8] for k, v in train.items()}, seed=s)
         )
-        t0 = time.perf_counter()
         state, _ = tr.fit(state, batch_iterator(train, 4096, epochs=None, seed=s),
                           steps=steps)
         ev = tr.evaluate(state, batch_iterator(test, 8192, shuffle=False), exact=True)
         aucs.append(ev["eval_auc_exact"])
         tag = name if len(seeds) == 1 else f"{name}_seed{s}"
-        report(tag, steps=steps, wall_s=round(time.perf_counter() - t0, 1), **ev)
+        report(tag, steps=steps, **ev)
     if len(seeds) > 1:
         report(name, steps=steps, auc_mean=float(np.mean(aucs)),
                auc_band=float(np.max(aucs) - np.min(aucs)),
@@ -127,7 +125,7 @@ def run_dien(steps=3000):
 
 
 def run_dien_drift(steps=3000, seeds=(0, 1, 2), only=None):
-    """Discriminative sequence benchmark (VERDICT r3 #1): interest-DRIFT
+    """Discriminative sequence benchmark: interest-DRIFT
     data where the label depends on history ORDER (recent-topic positives,
     stale-topic hard negatives — data/synthetic.py::SyntheticInterestDrift).
     BASE/DIN are permutation-invariant poolers capped near the bag-match
@@ -179,12 +177,12 @@ def run_dien_drift(steps=3000, seeds=(0, 1, 2), only=None):
 
 def run_drift_bst(steps=3000):
     """BST-only rung of the drift ladder (the base/din/dien rows are
-    already banded — RESULTS.md r4)."""
+    already banded)."""
     run_dien_drift(steps, only=("drift_bst",))
 
 
 def run_dien_membership(steps=3000, seeds=(0, 1, 2), only=None):
-    """The DIN-over-BASE link of the ladder (VERDICT r3 #1): fine-grained
+    """The DIN-over-BASE link of the ladder: fine-grained
     SET MEMBERSHIP (data/synthetic.py::SyntheticMultiInterest). All three
     architectures share a perfect membership oracle; BASE is handicapped
     by its mean-pool bottleneck (mean-readout proxy ~0.65 AUC at 50
@@ -275,9 +273,9 @@ def _train_base_protocol(gen, train, test, *, steps, seed=0, batch=1024,
     scores, labels = [], []
     for b in batch_iterator(test, 4096, shuffle=False):
         db = ctr_tr.put_batch(b)
-        p_ctr = ctr_m.apply({"params": ctr_s.params}, db)
-        p_cvr = cvr_m.apply({"params": cvr_s.params}, db)
-        scores.append(np.asarray(p_ctr) * np.asarray(p_cvr))
+        p_ctr = ctr_m.apply(ctr_s.params, {}, db)[0]
+        p_cvr = cvr_m.apply(cvr_s.params, {}, db)[0]
+        scores.append(jax.device_get(p_ctr * p_cvr))
         labels.append(b["purchase"])
     ctcvr_auc = float(exact_auc(np.concatenate(scores), np.concatenate(labels)))
     return float(cvr_auc), ctcvr_auc
@@ -329,7 +327,7 @@ def run_esmm_band(steps=3000):
 
 
 def run_esmm_bias(steps=3000, seeds=(0, 1, 2)):
-    """Selection-bias regime (VERDICT r3 #2): low click rate + Zipf-sparse
+    """Selection-bias regime: low click rate + Zipf-sparse
     vocabs + a click/buy confounder (``SyntheticMultiTask`` knobs), the
     published mechanism the ESMM decomposition corrects (esmm/README.md:
     17-23). The Base two-model protocol's click-space CVR model is starved
@@ -434,7 +432,7 @@ def run_eges(steps=16000, seeds=(0,)):
 
     # Reference-semantics rows by default; EGES_DAMPED=1 adds the
     # --shared_lr_scale 0.5 rows (converge in ~1/7 the steps to a better
-    # stable floor — benchmarks/RESULTS.md "GES/EGES convergence tax").
+    # stable floor).
     damped = {"cat_embedding": 0.5, "brand_embedding": 0.5}
     variants = [
         ("bge", DeepWalk(vocab_size=V, embed_dim=64), False, None),
@@ -447,8 +445,8 @@ def run_eges(steps=16000, seeds=(0,)):
             ("eges_damped", EGES(vocab_size=V, cat_vocab=C + 1, brand_vocab=100, embed_dim=64), True, damped),
         ]
     if os.environ.get("EGES_DAMPED_ONLY"):
-        # band ONLY the damped rows (the base rows are already banded —
-        # RESULTS.md r4) without re-paying 3 variants x seeds of training
+        # band ONLY the damped rows (the base rows are already banded)
+        # without re-paying 3 variants x seeds of training
         variants = [
             ("ges_damped", GES(vocab_size=V, cat_vocab=C + 1, brand_vocab=100, embed_dim=64), True, damped),
             ("eges_damped", EGES(vocab_size=V, cat_vocab=C + 1, brand_vocab=100, embed_dim=64), True, damped),
@@ -502,8 +500,7 @@ def run_pinsage(steps=6000, seeds=(0,), eval_every=0):  # the reference's hit-ra
     seen = np.zeros((U, V), bool)
     seen[np.asarray(us), np.asarray(its)] = True
     gt = ground_truth_matrix(test_item, V)
-    # serving-quantization neutrality is certified PER SEED (VERDICT r4 #4:
-    # 2 models was too thin a base for the 25x serving claim)
+    # serving-quantization neutrality is certified PER SEED
     from recommender_tpu.retrieval.quantize import (
         quantize_reprs,
         recommend_topk_quantized,
@@ -524,14 +521,12 @@ def run_pinsage(steps=6000, seeds=(0,), eval_every=0):  # the reference's hit-ra
         # eval-cadence trajectory: the reference's protocol is the PEAK of
         # one trajectory (pinsage/train/logs/log.jpg, hit-rate curve peaks
         # ~step 6000) — reporting peak alongside final quantifies the
-        # trajectory variance the final-only number hides (VERDICT r4 #4)
+        # trajectory variance the final-only number hides
         # segmented fits use prefetch=0: with the default Prefetcher each
         # segment boundary would drop a TIMING-DEPENDENT 1-3 queued
         # batches (fit over-pulls one batch at the break; close() discards
         # the queue), making trajectories irreproducible; prefetch=0 makes
         # the per-segment over-pull exactly one batch, deterministic
-        # (advisor r5 — iid sampler stream, so the dropped batches only
-        # ever added noise, not bias)
         traj = []
         if eval_every:
             for _ in range(max(steps // eval_every, 1)):
@@ -609,9 +604,8 @@ def run_twotower(steps=6000, seeds=(0, 1, 2)):
         state = tr.init_state(lambda: init_model(model, next(it), seed=s_))
         state, _ = tr.fit(state, it, steps=steps)
         reprs = corpus_item_reprs(model, state.params, V)
-        uq = np.asarray(_jax.jit(
-            lambda p, u: model.apply({"params": p}, u, method=model.user_repr)
-        )(state.params, np.arange(U, dtype=np.int32)))
+        uq = _jax.device_get(_jax.jit(model.user_repr)(
+            state.params, np.arange(U, dtype=np.int32)))
         hr = hit_rate(recommend_topk_from_queries(uq, reprs, seen, k=10), gt)
         qr, sc = quantize_reprs(reprs)
         # int8 corpus + approx reduction: quantized queries against the
@@ -634,7 +628,7 @@ def run_eges_band(steps=16000):
 
 
 def run_pinsage_band(steps=12000):
-    # 8 seeds (VERDICT r4 #4: >=5), eval cadence 2000 for peak-reporting.
+    # 8 seeds, eval cadence 2000 for peak-reporting.
     # 12k steps = 2x the reference's peak-at-6000 horizon: the r5 6k-step
     # trajectories were still RISING at 6000 for 7/8 seeds, so the band is
     # measured to the plateau (the step-6000 trajectory point stays

@@ -1,10 +1,10 @@
 // Native host-side graph sampling for recommender_tpu.
 //
-// TPU-native replacement for the DGL C++ kernels the reference depends on
+// Replacement for the DGL C++ kernels the reference depends on
 // (SURVEY.md §2.7 item 3): weighted random walks (eges), metapath walks and
 // the PinSAGE importance sampler (pinsage). The Python/numpy fallbacks in
 // recommender_tpu/graph/ are the behavioural reference; these functions are
-// the production hot path keeping the TPU fed (host sampling is the
+// the production hot path keeping the device fed (host sampling is the
 // throughput limiter flagged in SURVEY.md §7).
 //
 // Build: make -C native   (produces libgraph_sampler.so, loaded via ctypes)
@@ -124,8 +124,8 @@ void pinsage_importance_neighbors(
   std::mt19937_64 rng(seed);
   // Visit counts live in a small flat array: a walk budget of
   // num_walks*walk_length distinct visits (4*2=8 at PinSage defaults) makes
-  // hash-map clear/insert/alloc the dominant cost per item (~2.3 us/item
-  // measured) — linear scan over <=budget slots is ~10x cheaper and, with
+  // hash-map clear/insert/alloc the dominant cost per item — a linear
+  // scan over <=budget slots is far cheaper and, with
   // the same rng draw order and the same (count desc, id asc) tie-break,
   // bit-identical to the map version. NOTE: the count lookup is a linear
   // scan over the distinct-visit slots, so per-item cost grows

@@ -3,8 +3,8 @@
 Replaces the per-script argparse duplication of the reference (SURVEY.md §1
 L7: ``ctr/train.py:12-19``, ``dien/train.py:70-82`` vs
 ``dien/distribute_train.py:111-125``, etc.) with one flag set + one
-mesh/trainer bootstrap. Every entry point runs the same code from 1 chip to
-a (data × model) slice — there is no separate "distribute_train".
+mesh/trainer bootstrap. Every entry point runs the same code from 1 device
+to a (data × model) mesh — there is no separate "distribute_train".
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import json
 import jax
 
 from recommender_tpu.core.mesh import MeshSpec, make_mesh
-from recommender_tpu.core.train import TrainConfig, Trainer
+from recommender_tpu.core.train import CheckpointUnavailable, TrainConfig, Trainer
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -32,10 +32,6 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh_data", type=int, default=0, help="0 = all devices")
     p.add_argument("--mesh_model", type=int, default=1)
-    p.add_argument("--mesh_dcn", type=int, default=1,
-                   help=">1 = that many DCN-connected slices; each slice is "
-                        "a (mesh_data × mesh_model) ICI group and the slices "
-                        "fold into the data axis (core/mesh.py MeshSpec)")
     p.add_argument("--checkpoint_dir", type=str, default="")
     p.add_argument("--checkpoint_every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
@@ -46,9 +42,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "files (reference: keras TensorBoard callback, "
                         "ctr/train.py:94)")
     # ---- multi-host launch surface (core/distributed.py): run the SAME
-    # command on every host of a pod with its --process_id (or the JAX_*
-    # env vars / --distributed auto-detection on TPU pods); single-process
-    # with none set. Replaces the reference's single-host-only
+    # command on every host with its --process_id (or the JAX_* env vars /
+    # --distributed auto-detection under a cluster scheduler JAX knows);
+    # single-process with none set. Replaces the reference's single-host-only
     # MirroredStrategy launch (dien/distribute_train.py:132).
     p.add_argument("--coordinator_address", type=str, default="",
                    help="host:port of process 0 for jax.distributed "
@@ -62,8 +58,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="multi-host: every process logs JSONL (tagged with "
                         "its process index) instead of process 0 only")
     p.add_argument("--distributed", action="store_true",
-                   help="bare jax.distributed.initialize() — TPU-pod "
-                        "metadata auto-detection, no explicit coordinator")
+                   help="bare jax.distributed.initialize() — cluster "
+                        "auto-detection (e.g. SLURM), no explicit coordinator")
     return p
 
 
@@ -99,17 +95,18 @@ def host_batch_size(global_batch: int) -> int:
 
 def build_mesh(args):
     n = len(jax.devices())
-    dcn = getattr(args, "mesh_dcn", 1)
-    if dcn < 1 or args.mesh_model < 1 or args.mesh_data < 0:
+    if args.mesh_model < 1 or args.mesh_data < 0:
         raise SystemExit(
-            f"--mesh_dcn ({dcn}) and --mesh_model ({args.mesh_model}) must "
-            f"be >= 1, --mesh_data ({args.mesh_data}) >= 0"
+            f"--mesh_model ({args.mesh_model}) must be >= 1, "
+            f"--mesh_data ({args.mesh_data}) >= 0"
         )
-    data = args.mesh_data or (n // (args.mesh_model * dcn))
-    return make_mesh(MeshSpec(data=data, model=args.mesh_model, dcn_data=dcn))
+    data = args.mesh_data or (n // args.mesh_model)
+    return make_mesh(MeshSpec(data=data, model=args.mesh_model))
 
 
 def build_trainer(args, loss_fn, eval_fn=None, mesh=None, param_shardings=None) -> Trainer:
+    """Trainer from the common flags. Exits with a clear message when
+    ``--checkpoint_dir`` is set and orbax is not installed."""
     cfg = TrainConfig(
         learning_rate=args.learning_rate,
         log_every=args.log_every,
@@ -121,7 +118,10 @@ def build_trainer(args, loss_fn, eval_fn=None, mesh=None, param_shardings=None) 
         accum_steps=getattr(args, "accum_steps", 1),
         lr_scales=getattr(args, "lr_scales", None) or None,
     )
-    return Trainer(loss_fn, cfg, mesh=mesh, param_shardings=param_shardings, eval_fn=eval_fn)
+    try:
+        return Trainer(loss_fn, cfg, mesh=mesh, param_shardings=param_shardings, eval_fn=eval_fn)
+    except CheckpointUnavailable as e:
+        raise SystemExit(f"--checkpoint_dir: {e}") from e
 
 
 def log_jsonl(metrics: dict):

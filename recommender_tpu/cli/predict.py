@@ -25,9 +25,10 @@ import time
 import jax
 import numpy as np
 
+from recommender_tpu.core.compile_cache import enable_compile_cache
 from recommender_tpu.cli.common import log_jsonl
 from recommender_tpu.core.mesh import MeshSpec, make_mesh
-from recommender_tpu.core.train import TrainConfig, Trainer
+from recommender_tpu.core.train import CheckpointUnavailable, TrainConfig, Trainer
 from recommender_tpu.data.pipeline import batch_iterator
 from recommender_tpu.models.tasks import init_model
 from recommender_tpu.retrieval.scoring import make_scorer, score_batches
@@ -92,6 +93,7 @@ def main(argv=None):
     ap.add_argument("--cat_vocab", type=int, default=1500)
     ap.add_argument("--num_features", type=int, default=18)
     args = ap.parse_args(argv)
+    enable_compile_cache()  # before the first compile
 
     model = _build_model(args)
     arrays = (
@@ -103,11 +105,14 @@ def main(argv=None):
 
     # restore through the Trainer (same orbax layout the train CLIs wrote)
     mesh = make_mesh(MeshSpec(len(jax.devices()), 1))
-    trainer = Trainer(
-        lambda *a: None,  # no training: loss_fn never called
-        TrainConfig(checkpoint_dir=args.checkpoint_dir),
-        mesh=mesh,
-    )
+    try:
+        trainer = Trainer(
+            lambda *a: None,  # no training: loss_fn never called
+            TrainConfig(checkpoint_dir=args.checkpoint_dir),
+            mesh=mesh,
+        )
+    except CheckpointUnavailable as e:
+        raise SystemExit(f"--checkpoint_dir: {e}") from e
     example = {k: v[: min(args.batch_size, n)] for k, v in arrays.items()}
     state = trainer.init_state(lambda: init_model(model, example))
     restored = trainer.restore(state)

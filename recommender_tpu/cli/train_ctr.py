@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import glob
 
-import jax
 import jax.numpy as jnp
 
+from recommender_tpu.core.compile_cache import enable_compile_cache
 from recommender_tpu.cli.common import (
     base_parser,
     build_mesh,
@@ -27,11 +27,11 @@ from recommender_tpu.data.synthetic import SyntheticCTR
 from recommender_tpu.models.deepfm import DeepFM
 from recommender_tpu.models.dlrm import DLRM
 from recommender_tpu.models.tasks import init_model, make_ctr_task
-from recommender_tpu.parallel.partitioning import param_shardings
+from recommender_tpu.parallel.partitioning import model_shardings
 
 
 def main(argv=None):
-    p = base_parser("TPU CTR training (DLRM/DeepFM)")
+    p = base_parser("CTR training (DLRM/DeepFM/DCN)")
     p.add_argument("--model_type", choices=["DLRM", "DeepFM", "DCN"],
                    default="DLRM",
                    help="DCN = DCNv2 cross network (beyond-reference "
@@ -59,20 +59,20 @@ def main(argv=None):
                         "replicated (auto lookup mode only)")
     p.add_argument("--dedup_lookup", choices=["auto", "on", "off"], default="auto",
                    help="host-precomputed id-dedup plans for the embedding "
-                        "backward (data/dedup.py). MEASURED e2e LOSS on v5e "
-                        "(0.92x DLRM b8192, benchmarks/RESULTS.md) — auto "
-                        "resolves to OFF; 'on' keeps the path exercisable")
+                        "backward (data/dedup.py). auto resolves to OFF (it "
+                        "lost end to end on the hardware it was tuned on); "
+                        "'on' keeps the path exercisable")
     p.add_argument("--prefetch_workers", type=int, default=1,
                    help="parallel host read/slice workers for the on-disk "
                         "shard stream (deterministic round-robin interleave "
                         "— resumable; data/pipeline.interleave_ordered). "
-                        "This 2-core host saturates at 2; production hosts "
-                        "scale it with cores (benchmarks/exp_stream_budget.py)")
+                        "Scale it with the host's cores")
     p.add_argument("--embed_dtype", choices=["f32", "bf16"], default="f32",
-                   help="bf16 = store the table param in bfloat16: ~20% step "
-                        "win at DLRM scale, quality-neutral (stochastic "
-                        "rounding auto-enables; see DLRM.embed_param_dtype)")
+                   help="bf16 = store the table param in bfloat16: half the "
+                        "table bytes, quality-neutral (stochastic rounding "
+                        "auto-enables; see DLRM.embed_param_dtype)")
     args = p.parse_args(argv)
+    enable_compile_cache()  # before the first compile
     host_id, num_hosts = setup_distributed(args)  # before any device use
     log = make_logger(args)
     if args.lr_schedule == "dlrm":
@@ -91,7 +91,7 @@ def main(argv=None):
     test_bs = host_batch_size(args.test_batch_size)
     # one predicate for every branch that depends on the stream kind
     # (--synthetic with a stray --data_dir previously disagreed between
-    # the data branch and the prefetch gate — advisor r5)
+    # the data branch and the prefetch gate)
     streamed = bool(args.data_dir) and not args.synthetic
     if not streamed:
         gen = SyntheticCTR(vocab_size=args.vocab_size, seed=args.seed)
@@ -149,7 +149,7 @@ def main(argv=None):
         if args.checkpoint_dir:
             # the merged stream is a FUNCTION of (workers, seed, shard
             # count): resuming with different values would silently train
-            # on an unrelated stream (advisor r5) — pin them in a sidecar
+            # on an unrelated stream — pin them in a sidecar
             import json as _json
             import os as _os
 
@@ -242,10 +242,7 @@ def main(argv=None):
 
     loss_fn, eval_fn = make_ctr_task(model)
     # derive shardings from shapes only (no double param materialization)
-    var_shapes = jax.eval_shape(
-        lambda: model.init(jax.random.PRNGKey(args.seed), example)
-    )
-    pshard = param_shardings(var_shapes["params"], mesh)
+    pshard = model_shardings(model, example, mesh, seed=args.seed)
     trainer = build_trainer(args, loss_fn, eval_fn, mesh, pshard)
     state = trainer.init_state(lambda: init_model(model, example, seed=args.seed))
     if args.resume and args.checkpoint_dir:
@@ -253,7 +250,7 @@ def main(argv=None):
         # resume the data stream where the restored step left off (+1 for
         # the example batch init consumed from the fresh stream) — BOTH
         # branches: the on-disk shard stream fast-forwards by header-read
-        # arithmetic (shard_batches(start_batch=), VERDICT r4 #2)
+        # arithmetic (shard_batches(start_batch=))
         if not streamed:
             train_iter = batch_iterator(
                 train_arrays, train_bs, seed=args.seed,
@@ -280,12 +277,7 @@ def main(argv=None):
     if args.dedup_lookup == "on":
         # 'on' still fails fast on configs where the plan-driven backward is
         # broken or self-defeating, instead of crashing at first grad /
-        # silently corrupting training (advisor round-1 findings).
-        if jax.default_backend() != "tpu":
-            raise SystemExit(
-                "--dedup_lookup on: the dedup backward is a Pallas TPU kernel; "
-                f"current backend is {jax.default_backend()!r}"
-            )
+        # silently corrupting training.
         if args.accum_steps > 1:
             raise SystemExit(
                 "--dedup_lookup on is incompatible with --accum_steps > 1 "
@@ -298,14 +290,12 @@ def main(argv=None):
             )
         dedup_on = True
     else:
-        # auto resolves to OFF: the plan-driven backward measured an e2e
-        # LOSS at the exact shape it was built for (DLRM b8192, 1M x 16:
-        # 8.84 -> 9.66 ms/step, benchmarks/exp_dedup_e2e.py 2026-08-20 —
-        # the segment-sum + small scatter don't beat XLA's fused
-        # pad+scatter-in-cotangent-producer, and the perm gather adds a
-        # materialized reorder). Kept as an explicit 'on' for future
-        # per-shard use where the scatter is NOT fusable with the
-        # cotangent producer.
+        # auto resolves to OFF: on the hardware it was tuned on, the
+        # plan-driven backward lost end to end at the shape it was built
+        # for (DLRM b8192, 1M x 16) — the segment-sum + small scatter did
+        # not beat XLA's scatter fused into the cotangent producer, and the
+        # perm gather adds a materialized reorder. Not yet re-measured on
+        # the current GPU. Kept as an explicit 'on'.
         dedup_on = False
     if dedup_on:
         from recommender_tpu.data.pipeline import with_dedup_plans
@@ -331,7 +321,7 @@ def main(argv=None):
         log({"final": 1, **trainer.evaluate(state, eval_iter_fn(), args.eval_batches, exact=True)})
     if args.checkpoint_dir:
         trainer.save(state)
-    return state
+    return trainer, state
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import jax
 
+from recommender_tpu.core.compile_cache import enable_compile_cache
 from recommender_tpu.cli.common import (
     base_parser,
     build_mesh,
@@ -32,18 +33,19 @@ MODELS = {"BASE": BaseModel, "DIN": DIN, "DIEN": DIEN, "BST": BST}
 
 
 def main(argv=None):
-    p = base_parser("TPU behavior-sequence CTR training (BASE/DIN/DIEN)")
+    p = base_parser("Behavior-sequence CTR training (BASE/DIN/DIEN)")
     p.add_argument("--model_type", choices=list(MODELS), default="DIEN")
     p.add_argument("--embedding_size", type=int, default=18)
     p.add_argument("--history_max_length", type=int, default=100)
     p.add_argument("--embed_dtype", choices=["f32", "bf16"], default="f32",
-                   help="bf16 = store both tables in bfloat16: +18% step at "
-                        "b1024, quality-neutral (stochastic rounding "
-                        "auto-enables; benchmarks/RESULTS.md r3 zoo study)")
+                   help="bf16 = store both tables in bfloat16: half the "
+                        "table bytes, quality-neutral (stochastic rounding "
+                        "auto-enables)")
     p.add_argument("--train_file", type=str, default="")
     p.add_argument("--test_file", type=str, default="")
     p.add_argument("--vocab_dir", type=str, default="")
     args = p.parse_args(argv)
+    enable_compile_cache()  # before the first compile
     host_id, num_hosts = setup_distributed(args)  # before any device use
     log = make_logger(args)
 

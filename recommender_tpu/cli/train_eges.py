@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from recommender_tpu.core.compile_cache import enable_compile_cache
 from recommender_tpu.cli.common import (
     base_parser,
     build_mesh,
@@ -46,7 +47,7 @@ def _synthetic_graph(num_nodes=2000, num_comm=16, seed=0):
 
 
 def main(argv=None):
-    p = base_parser("TPU graph item-embedding training (BGE/GES/EGES)")
+    p = base_parser("Graph item-embedding training (BGE/GES/EGES)")
     p.add_argument("--model_type", choices=["BGE", "GES", "EGES"], default="EGES")
     p.add_argument("--embedding_size", type=int, default=128)
     p.add_argument("--random_walk_length", type=int, default=10)
@@ -57,7 +58,7 @@ def main(argv=None):
                    help="write a serving bundle (npz) of trained item embeddings")
     p.add_argument("--export_int8", action="store_true",
                    help="quantize the exported corpus to int8 + per-row "
-                        "scales (4x smaller bundle, int8-MXU serving path)")
+                        "scales (4x smaller bundle, int8 serving path)")
     p.add_argument("--shared_lr_scale", type=float, default=1.0,
                    help="GES/EGES: multiply the SHARED side tables' (cat, "
                         "brand) post-Adam updates by this factor. Their early "
@@ -65,10 +66,11 @@ def main(argv=None):
                         "mid-run and re-converges ~4x slower than BGE); 0.5 "
                         "both stabilizes and accelerates — measured 0.992 AUC "
                         "at 2k steps vs plain GES's collapse to 0.72 "
-                        "(benchmarks/exp_eges_convergence.py; up-scaling, the "
+                        "(benchmarks/quality_runs.py; up-scaling, the "
                         "opposite, is strictly worse). 1.0 = reference "
                         "semantics (eges/model.py:58-102).")
     args = p.parse_args(argv)
+    enable_compile_cache()  # before the first compile
     host_id, num_hosts = setup_distributed(args)  # before any device use
     if args.shared_lr_scale != 1.0 and args.model_type != "BGE":
         args.lr_scales = {
@@ -143,7 +145,7 @@ def main(argv=None):
 
         block = min(1 << 20, g.num_nodes)
         hidden_fn = jax.jit(
-            lambda p, b: model.apply({"params": p}, b, method=model.get_hidden)
+            lambda p, b: model.get_hidden(p, b)
         )
         chunks = []
         for s0 in range(0, g.num_nodes, block):
@@ -155,7 +157,7 @@ def main(argv=None):
             if use_side:
                 b["target_cat"] = jnp.asarray(side["cat"][ids_p])
                 b["target_brand"] = jnp.asarray(side["brand"][ids_p])
-            chunks.append(np.asarray(hidden_fn(state.params, b))[:n])
+            chunks.append(jax.device_get(hidden_fn(state.params, b))[:n])
         export_serving_bundle(
             args.export, np.concatenate(chunks, axis=0),
             metadata={"model": args.model_type, "embed_dim": args.embedding_size},

@@ -7,8 +7,10 @@ model on impressions and a CVR model on clicks, CTCVR = product.
 """
 from __future__ import annotations
 
+import jax
 import numpy as np
 
+from recommender_tpu.core.compile_cache import enable_compile_cache
 from recommender_tpu.cli.common import (
     base_parser,
     build_mesh,
@@ -37,7 +39,7 @@ def _round_to(arrays, mult):
 
 
 def main(argv=None):
-    p = base_parser("TPU multi-task CTR/CVR training (BASE/ESMM/MMOE)")
+    p = base_parser("Multi-task CTR/CVR training (BASE/ESMM/MMOE)")
     p.add_argument("--model_type", choices=["BASE", "ESMM", "MMOE"], default="ESMM")
     p.add_argument("--embedding_size", type=int, default=18)
     p.add_argument("--train_npz", type=str, default="", help="npz with features/click/purchase")
@@ -46,6 +48,7 @@ def main(argv=None):
                    help="planner threshold: tables under this many MB stay "
                         "replicated (embedding.planner.plan_tables)")
     args = p.parse_args(argv)
+    enable_compile_cache()  # before the first compile
     host_id, num_hosts = setup_distributed(args)  # before any device use
     log = make_logger(args)
 
@@ -146,9 +149,9 @@ def main(argv=None):
         auc = StreamingAUC()
         for batch in batch_iterator(_round_to(test, ndata), args.test_batch_size, shuffle=False):
             b = tr.put_batch(batch)
-            p_ctr = ctr_m.apply({"params": ctr_s.params}, b)
-            p_cvr = cvr_m.apply({"params": cvr_s.params}, b)
-            auc.update_state(batch["purchase"], np.asarray(p_ctr) * np.asarray(p_cvr))
+            p_ctr = ctr_m.apply(ctr_s.params, {}, b)[0]
+            p_cvr = cvr_m.apply(cvr_s.params, {}, b)[0]
+            auc.update_state(batch["purchase"], jax.device_get(p_ctr * p_cvr))
         log({"final": 1, "ctcvr_auc": auc.result()})
         return models
 
@@ -156,17 +159,13 @@ def main(argv=None):
     model = model_cls(vocab_sizes=sizes, embed_dim=args.embedding_size,
                       **plan_kwargs)
     loss_fn, eval_fn = make_multitask_task(model)
+    example = {k: v[: args.train_batch_size] for k, v in train.items()}
     pshard = None
     if partition is not None:
-        import jax
+        from recommender_tpu.parallel.partitioning import model_shardings
 
-        from recommender_tpu.parallel.partitioning import param_shardings
-
-        ex0 = {k: v[: args.train_batch_size] for k, v in train.items()}
-        var_shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(args.seed), ex0))
-        pshard = param_shardings(var_shapes["params"], mesh)
+        pshard = model_shardings(model, example, mesh, seed=args.seed)
     trainer = build_trainer(args, loss_fn, eval_fn, mesh, param_shardings=pshard)
-    example = {k: v[: args.train_batch_size] for k, v in train.items()}
     state = trainer.init_state(lambda: init_model(model, example, seed=args.seed))
     if args.resume and args.checkpoint_dir:
         state = trainer.restore(state)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from recommender_tpu.core.compile_cache import enable_compile_cache
 from recommender_tpu.cli.common import (
     base_parser,
     build_mesh,
@@ -50,7 +51,7 @@ def _synthetic(seed=0):
 
 
 def main(argv=None):
-    p = base_parser("TPU PinSage training (MovieLens)")
+    p = base_parser("PinSage training (MovieLens)")
     p.add_argument("--data_dir", type=str, default="", help="dir with ratings.dat/movies.dat")
     p.add_argument("--embedding_size", type=int, default=8)
     p.add_argument("--conv_hidden_size", type=int, default=64)
@@ -63,13 +64,14 @@ def main(argv=None):
                    help="write a serving bundle (npz) of trained item reprs")
     p.add_argument("--export_int8", action="store_true",
                    help="quantize the exported corpus to int8 + per-row "
-                        "scales (4x smaller bundle, int8-MXU serving path)")
+                        "scales (4x smaller bundle, int8 serving path)")
     p.add_argument("--export_ivf_clusters", type=int, default=0,
                    help="also pack an IVF index (k-means buckets + spill) "
                         "into the bundle; cli/serve --probes N then serves "
                         "the clustered small-Q latency path")
     p.set_defaults(train_batch_size=32)
     args = p.parse_args(argv)
+    enable_compile_cache()  # before the first compile
     host_id, num_hosts = setup_distributed(args)  # before any device use
     log = make_logger(args)
 

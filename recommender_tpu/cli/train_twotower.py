@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from recommender_tpu.core.compile_cache import enable_compile_cache
 from recommender_tpu.cli.common import (
     base_parser,
     build_mesh,
@@ -56,7 +57,7 @@ def _synthetic(seed=0, num_users=400, num_items=200, num_comm=8):
 
 
 def main(argv=None):
-    p = base_parser("TPU two-tower retrieval training")
+    p = base_parser("Two-tower retrieval training")
     p.add_argument("--data_dir", type=str, default="",
                    help="dir with ratings.dat/movies.dat (MovieLens)")
     p.add_argument("--embedding_size", type=int, default=32)
@@ -69,6 +70,7 @@ def main(argv=None):
     p.add_argument("--export_ivf_clusters", type=int, default=0)
     p.set_defaults(train_batch_size=1024)
     args = p.parse_args(argv)
+    enable_compile_cache()  # before the first compile
     host_id, num_hosts = setup_distributed(args)
     log = make_logger(args)
     mesh = build_mesh(args)
@@ -108,7 +110,7 @@ def main(argv=None):
 
     reprs = corpus_item_reprs(model, state.params, g.num_items)
     uq = np.asarray(jax.jit(
-        lambda p, u: model.apply({"params": p}, u, method=model.user_repr)
+        lambda p, u: model.user_repr(p, u)
     )(state.params, np.arange(g.num_users, dtype=np.int32)))
     recs = recommend_topk_from_queries(uq, reprs, seen, k=args.top_k)
     gt = ground_truth_matrix(test_item, g.num_items)

@@ -1,13 +1,13 @@
-"""Multi-host runtime entry point (VERDICT r3 missing #2 / next #3).
+"""Multi-host runtime entry point.
 
 The reference's multi-device story is single-host MirroredStrategy with
 ``experimental_distribute_dataset`` feeding per-replica data
-(``dien/distribute_train.py:132,190-192``). The TPU-native equivalent for a
-real N-host pod is:
+(``dien/distribute_train.py:132,190-192``). The equivalent here for N hosts
+(processes) is:
 
 1. every process calls ``jax.distributed.initialize`` (coordinator
    rendezvous) BEFORE any other jax call, so ``jax.devices()`` returns the
-   GLOBAL device set and collectives span the pod;
+   GLOBAL device set and collectives span every host;
 2. the 2-D (data, model) mesh is built over the global devices exactly as
    on one host — no model/trainer code changes;
 3. each process feeds only its own slice of the input stream
@@ -22,9 +22,10 @@ real N-host pod is:
 
 ``initialize_from_flags`` is wired into every train CLI via
 ``cli/common.py`` (flags ``--coordinator_address --num_processes
---process_id``, or the standard JAX env vars / TPU-pod auto-detection via
+--process_id``, or the standard JAX env vars / cluster auto-detection via
 ``--distributed``); with none of them set it is a no-op returning
-``(0, 1)``, so the single-chip path is untouched.
+``(0, 1)``, so the single-process path is untouched. Multi-host launch on
+GPUs is exercised here only as multi-process on CPU (tests/test_multihost.py).
 """
 from __future__ import annotations
 
@@ -42,8 +43,8 @@ def initialize_from_flags(
 
     Resolution order (mirrors ``jax.distributed.initialize``'s own):
     explicit args > ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-    ``JAX_PROCESS_ID`` env vars > ``auto=True`` (bare initialize — TPU-pod
-    metadata auto-detection) > no-op single process.
+    ``JAX_PROCESS_ID`` env vars > ``auto=True`` (bare initialize — the
+    cluster auto-detection JAX supports, e.g. SLURM) > no-op single process.
 
     Must run before the first device-touching jax call of the process.
     Safe to call twice (the second call is a no-op if the runtime is
@@ -72,9 +73,9 @@ def initialize_from_flags(
             process_id=process_id,
         )
     elif auto:
-        # TPU pod: every worker discovers the coordinator from platform
-        # metadata; on non-TPU backends this raises, which is the right
-        # failure (the flag asked for a pod launch that isn't one)
+        # every process discovers the coordinator from the cluster
+        # environment; where JAX finds none this raises, which is the
+        # right failure (the flag asked for a cluster launch that isn't one)
         _initialize_once(jax)
     return jax.process_index(), jax.process_count()
 

@@ -3,16 +3,17 @@
 The framework uses a 2-D logical mesh:
 
 * ``data``  — batch (data-parallel) axis. Gradients are reduced over it by
-  XLA-inserted ``psum`` (the TPU-native replacement for the reference's
+  an XLA-inserted all-reduce (the replacement for the reference's
   ``tf.distribute.MirroredStrategy`` NCCL all-reduce, e.g.
   ``ctr/train.py:71``, ``dien/distribute_train.py:92-93``).
 * ``model`` — table/model-parallel axis. Embedding tables are **row-sharded**
   over it (see ``recommender_tpu.embedding.sharded``); dense params are
   replicated.
 
-On a single chip both axes have size 1 and every sharding degenerates to
-fully-replicated, so the same jitted step runs unchanged from 1 chip to a
-multi-host slice.
+On a single device both axes have size 1 and every sharding degenerates to
+fully-replicated, so the same jitted step runs unchanged from 1 device to
+several. The mesh follows the algorithm alone: the GPUs of one host reach
+each other all to all (NVLink), so device order carries no topology.
 """
 from __future__ import annotations
 
@@ -29,120 +30,34 @@ MODEL_AXIS = "model"
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """Logical mesh shape. ``data * model * dcn_data`` must equal the device
-    count.
-
-    ``dcn_data > 1`` is the multi-slice growth path: that many extra
-    data-parallel groups connected over DCN (slices of a multi-slice
-    deployment). They FOLD INTO the ``data`` axis — the logical mesh stays
-    2-D and no model/trainer code changes — but the device order puts the
-    slice dimension outermost-major, so XLA lowers the gradient ``psum``
-    hierarchically: reduce-scatter/all-gather over ICI within a slice, and
-    only the per-slice partials cross DCN. Embedding row-shards (``model``
-    axis) and their all-to-all stay strictly within a slice on ICI.
-    """
+    """Logical mesh shape. ``data * model`` must equal the device count."""
 
     data: int = 1
     model: int = 1
-    dcn_data: int = 1
 
     @property
     def shape(self) -> tuple[int, int]:
-        return (self.data * self.dcn_data, self.model)
+        return (self.data, self.model)
 
 
 def make_mesh(
     spec: Optional[MeshSpec] = None,
     devices: Optional[Sequence[jax.Device]] = None,
 ) -> Mesh:
-    """Build the 2-D (data, model) mesh.
+    """Build the 2-D (data, model) mesh over ``devices`` in their order.
 
     With no spec, all devices go on the ``data`` axis (pure DP — the
-    reference's only strategy, SURVEY.md §2.6). ``jax.experimental.mesh_utils``
-    is used when available so that the mesh is laid out along ICI neighbors;
-    with ``dcn_data > 1`` the hybrid (ICI × DCN) layout is used instead, and
-    if device attributes carry no slice topology (CPU test meshes) the
-    fallback assumes ``devices`` is ordered slice-major.
+    reference's only strategy, SURVEY.md §2.6).
     """
     devices = list(devices if devices is not None else jax.devices())
     if spec is None:
         spec = MeshSpec(data=len(devices), model=1)
-    n_need = spec.data * spec.model * spec.dcn_data
+    n_need = spec.data * spec.model
     if n_need != len(devices):
         raise ValueError(
             f"mesh {spec.shape} needs {n_need} devices, got {len(devices)}"
         )
-    try:
-        from jax.experimental import mesh_utils
-
-        if spec.dcn_data > 1:
-            dev_array = mesh_utils.create_hybrid_device_mesh(
-                (spec.data, spec.model),
-                (spec.dcn_data, 1),
-                devices=devices,
-            )
-        else:
-            dev_array = mesh_utils.create_device_mesh(
-                spec.shape, devices=devices
-            )
-    except Exception as e:
-        if spec.dcn_data > 1:
-            _check_slice_major(devices, spec, e)
-        # slice-major order: devices [s*data*model : (s+1)*data*model] form
-        # slice s, so reshaping (dcn*data, model) keeps each slice's block
-        # contiguous along the folded data axis
-        dev_array = np.asarray(devices).reshape(spec.shape)
-    return Mesh(dev_array, (DATA_AXIS, MODEL_AXIS))
-
-
-def _check_slice_major(devices, spec: MeshSpec, err: Exception) -> None:
-    """Gate the dcn_data fold fallback: on real multi-slice hardware a
-    hybrid-mesh failure with a silently-assumed device order would quietly
-    route per-shard ICI traffic over DCN (VERDICT r2 weak #7). Policy:
-
-    * devices expose ``slice_index`` → VERIFY the slice-major assumption
-      (each contiguous block of data·model devices is one whole slice);
-      raise on any mismatch instead of proceeding with a wrong topology;
-    * no slice topology and every device is a CPU (the 8-virtual-device
-      test mesh) → warn and assume, which is correct there by construction;
-    * anything else (real accelerators without a readable topology) →
-      REFUSE: pass an explicitly slice-major-ordered device list or fix
-      the hybrid mesh call instead.
-    """
-    per_slice = spec.data * spec.model
-    slice_ids = [getattr(d, "slice_index", None) for d in devices]
-    if all(s is not None for s in slice_ids):
-        blocks = [
-            set(slice_ids[i : i + per_slice])
-            for i in range(0, len(devices), per_slice)
-        ]
-        if any(len(b) != 1 for b in blocks) or len(
-            {next(iter(b)) for b in blocks}
-        ) != spec.dcn_data:
-            raise ValueError(
-                f"create_hybrid_device_mesh failed ({err}) and the device "
-                f"list is NOT slice-major for dcn_data={spec.dcn_data}: "
-                f"per-block slice ids {blocks}. Reorder `devices` so each "
-                f"contiguous block of {per_slice} belongs to one slice."
-            )
-        return  # verified slice-major — fold is safe, no warning needed
-    if all(getattr(d, "platform", "") == "cpu" for d in devices):
-        import warnings
-
-        warnings.warn(
-            f"create_hybrid_device_mesh failed ({err}); assuming the CPU "
-            f"test-mesh device list is slice-major for "
-            f"dcn_data={spec.dcn_data} (correct by construction for "
-            "xla_force_host_platform_device_count meshes).",
-            stacklevel=3,
-        )
-        return
-    raise ValueError(
-        f"create_hybrid_device_mesh failed ({err}) and the devices expose "
-        "no slice topology to verify the dcn_data fold against. Refusing "
-        "to guess on real hardware — pass a slice-major `devices` list "
-        "from a backend that exposes slice_index, or use dcn_data=1."
-    )
+    return Mesh(np.asarray(devices).reshape(spec.shape), (DATA_AXIS, MODEL_AXIS))
 
 
 def data_sharding(mesh: Mesh, ndim: int = 1) -> NamedSharding:

@@ -2,8 +2,7 @@
 
 ``adam_sr`` is Adam with three properties that make a bf16-STORED param
 (e.g. the DLRM 1M×16 table, `--embed_dtype bf16`) quality-neutral while
-keeping its HBM-traffic win (benchmarks/RESULTS.md "bf16 table study",
-exp_bf16_sr.py):
+keeping its halved HBM traffic:
 
 * moment math runs in f32 regardless of storage dtype (a bf16 ``nu`` with
   round-to-nearest writes goes STALE: the (1-b2)·g² increment is ~1e-3

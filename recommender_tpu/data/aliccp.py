@@ -1,6 +1,6 @@
 """Ali-CCP multi-task pipeline: raw preprocess, splits, fixed-shape batches.
 
-Behavioral parity with ``/root/reference/esmm``:
+Behavioral parity with ``esmm``:
 * ``parse_kv_features`` / ``process_raw`` — the ``\\x01\\x02\\x03``-separated
   key/value/weight triple parsing of ``common_features`` and
   ``sample_skeleton`` files, joined by common-feature key; rows with
@@ -13,7 +13,7 @@ Behavioral parity with ``/root/reference/esmm``:
 * Splits — ``impressions`` (all rows), ``impressions_subsampled`` (keep
   every 5th non-click → click:non-click ≈ 1:5, ``esmm/tfrecord_io.py:54-84``),
   ``clicks`` (click=1 only, ``:88-113``). Stored as plain numpy arrays
-  (the TPU-host replacement for per-row TFRecord protos).
+  (the host-side replacement for per-row TFRecord protos).
 
 Fixed divergence (documented, SURVEY.md §7 quirks): the reference's demo
 ``__main__`` passes (tfrecord, raw) swapped to ``write_click_tfrecord``

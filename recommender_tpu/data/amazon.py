@@ -1,6 +1,6 @@
 """Amazon Books behavior-sequence pipeline (DIEN family).
 
-Real-format parity with ``/root/reference/dien``:
+Real-format parity with ``dien``:
 * ``build_vocab`` — item/cat vocab dicts from the ``local_train_splitByUser``
   TSV (fields tab-separated; history lists ``\\x02``-separated), with
   ``mask``→0 and ``unk``→last-index rows plus an item→cat map

@@ -1,6 +1,6 @@
 """Amazon Electronics metadata → co-occurrence graph + vocabs (EGES prep).
 
-Behavioral parity with ``/root/reference/eges/util.py``:
+Behavioral parity with ``eges/util.py``:
 * ``load_metadata`` — JSON-lines with ``asin``/``main_cat``/``brand``/
   ``also_buy``; symmetric pair counts keeping max(count, reverse count)
   per undirected pair, co-occurrence restricted to items with metadata

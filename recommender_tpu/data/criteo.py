@@ -1,6 +1,6 @@
 """Criteo (Kaggle DAC) pipeline: vocab build, encoding, binary shards.
 
-Behavioral parity with ``/root/reference/ctr/tfrecord_io.py``:
+Behavioral parity with ``ctr/tfrecord_io.py``:
 * ONE vocab shared across all 26 categorical columns; values seen > 10
   times keep a contiguous id, everything else falls to bucket 0
   (``tfrecord_io.py:15-36``; the reference assigns ids in dict-iteration
@@ -11,7 +11,7 @@ Behavioral parity with ``/root/reference/ctr/tfrecord_io.py``:
   have identical semantics and survive restarts; divergence documented);
 * integer features: missing/negative → 0, then ``log(x+1)``
   (``tfrecord_io.py:45-53``);
-* storage: ``.npz`` shards of fixed-dtype arrays — the TPU-host
+* storage: ``.npz`` shards of fixed-dtype arrays — the host-side
   replacement for per-row TFRecord protos (zero-copy mmap load, no
   protobuf decode on the hot path).
 """
@@ -205,7 +205,7 @@ def shard_batches(
 
     ``start_batch`` fast-forwards the (seed-determined) stream by that many
     batches — the data-iterator half of checkpoint resume for the REAL-DATA
-    path (VERDICT r4 #2; ``batch_iterator`` has the in-memory counterpart).
+    path.
     Skipping is arithmetic: whole skipped shards cost one header read
     (``shard_rows``) and still consume their per-shard seed draw, the
     landing shard fast-forwards via ``batch_iterator(start_batch=)`` —

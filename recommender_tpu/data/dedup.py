@@ -6,18 +6,18 @@ only ~36k unique ids. The device backward pays per scatter ROW, so the input
 pipeline precomputes a per-batch dedup plan here (producer thread, overlapped
 with the device step) and ``ops.embedding_kernels.embedding_lookup_dedup``
 segment-sums cotangents into unique rows before the ~6x smaller table
-scatter. Device-side numbers: ``benchmarks/exp_dedup.py``.
+scatter (checked and timed on the device by chip_smoke.py).
 
 A plan is three int32 arrays (shapes static per batch size, jit-friendly):
 
   perm        [N]      positions of the flattened ids, sorted by id (stable)
   slot_sorted [N]      unique-slot index per sorted position (nondecreasing)
   uniq        [U_cap]  ascending unique ids, padded with PAD_ID (2^30 —
-                       dropped by ``sorted_scatter_add``'s tile ranges)
+                       out of range, so ``sorted_scatter_add`` drops them)
 
-The C++ radix-sort plan costs ~2 ms per DLRM batch; ``np.unique`` on the
-same input is ~52 ms (too slow to keep an ~8 ms device step fed), so the
-numpy fallback exists for correctness/tests, not throughput.
+The C++ radix-sort plan is the fast path; the numpy fallback
+(``np.unique``, a comparison sort) exists for correctness and tests, not
+throughput. Neither has been timed against the current GPU's step.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-PAD_ID = np.int32(2**30)  # matches ops.embedding_kernels._PAD_ID
+PAD_ID = np.int32(2**30)  # beyond any vocab: dropped by the segment-sum
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _LIB_PATH = _NATIVE_DIR / "libdedup.so"
@@ -97,7 +97,7 @@ def build_plan(ids: np.ndarray, u_cap: int) -> DedupPlan | None:
         if n_uniq < 0:
             return None
         return DedupPlan(perm, slot, uniq, int(n_uniq))
-    # numpy fallback (sort-based; ~25x slower — tests/correctness only)
+    # numpy fallback (comparison sort; tests/correctness only)
     uniq_v, inv = np.unique(flat, return_inverse=True)
     if uniq_v.size > u_cap:
         return None

@@ -1,6 +1,6 @@
 """MovieLens-1M preprocessing for PinSage.
 
-Behavioral parity with ``/root/reference/pinsage/train/process_movielens.py``
+Behavioral parity with ``pinsage/train/process_movielens.py``
 + ``graph_builder.py`` + ``util.py`` without pandas/DGL/pickle:
 
 * parse ``users.dat`` / ``movies.dat`` / ``ratings.dat`` ('::' separated);

@@ -1,11 +1,11 @@
 """Host input-pipeline utilities: fixed-shape batching and device prefetch.
 
-TPU-native replacement for the reference's uniform
+Replacement for the reference's uniform
 ``.shuffle(k·batch).batch(b).prefetch(10)`` idiom (``ctr/train.py:59-61``,
 ``dien/train.py:120-122``, ``esmm/train.py:219-234``, ``eges/train.py:99-103``)
 without the tf.data C++ runtime: numpy batches are produced by (optionally
 background-threaded) generators and transferred ahead of compute so the
-chip never waits on the host.
+device never waits on the host.
 """
 from __future__ import annotations
 
@@ -230,11 +230,11 @@ def with_dedup_plans(
     """Attach a host-precomputed embedding-ID dedup plan to each batch.
 
     Adds ``batch[plan_key] = {"perm", "slot", "uniq"}`` over the flattened
-    ``batch[key]`` ids (``data.dedup.build_plan`` — C++ radix plan, ~2-4 ms
-    per DLRM batch in the producer thread). Models pass the plan to their
+    ``batch[key]`` ids (``data.dedup.build_plan`` — C++ radix plan, built
+    in the producer thread). Models pass the plan to their
     shared ``Embedding``, whose backward then scatters only unique rows
-    (``ops.embedding_kernels.embedding_lookup_dedup``; measured win:
-    benchmarks/exp_dedup.py, RESULTS.md).
+    (``ops.embedding_kernels.embedding_lookup_dedup``; chip_smoke.py phase
+    ``kernels`` checks and times it).
 
     The dedup'd backward's cost scales with ``u_cap`` (the segment-sum dest
     and the final scatter's padded stream), so the cap must sit close to the

@@ -310,7 +310,7 @@ class SyntheticMultiInterest:
         assert self.hist_cats <= self.max_len <= C
         # hist_cats == C leaves no negative pool (sample's integers(K, C)
         # raises 'low >= high'); num_items-1 < C gives items_per_cat == 0
-        # and breaks _item_from_cat (advisor r4)
+        # and breaks _item_from_cat
         assert self.hist_cats < C, "need at least one non-interest category"
         assert self.num_items - 1 >= C, "need at least one item per category"
         self.items_per_cat = (self.num_items - 1) // C

@@ -4,11 +4,11 @@ Replaces ``keras.layers.Embedding`` everywhere the reference uses it
 (``ctr/model.py:10,42``, ``dien/model.py:11-12``, ``esmm/base.py:9-11``,
 ``eges/model.py:20-102``, ``pinsage/train/layers.py:49-81``).
 
-Design notes (TPU-first):
+Design notes:
 * The table is a plain f32 param; lookups cast activations to bf16 only
   downstream (gathers are bandwidth-bound; the table dtype is the knob).
-* ``partition="model"`` attaches flax partitioning metadata so the
-  parallel rules row-shard the table over the ``model`` mesh axis; under
+* ``partition="model"`` makes ``spec`` row-shard the table over the
+  ``model`` mesh axis (the model's ``sharded_params`` collects it); under
   ``jit`` XLA/GSPMD then compiles the gather into the canonical
   masked-local-gather + all-reduce exchange. Its BACKWARD, however, is a
   replicated full-table scatter per device (the SPMD partitioner cannot
@@ -26,8 +26,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import flax.linen as nn
 import jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+
+from recommender_tpu.nn.layers import embedding_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +43,13 @@ class EmbeddingSpec:
     sharded: bool = False
 
 
-class Embedding(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class Embedding:
+    """One table: params ``{"embedding": [vocab_size, features]}``.
+
+    ``apply`` returns ``(vectors, diagnostics)``; diagnostics is ``{}``
+    except on the all-to-all path, which reports ``a2a_overflow``."""
+
     vocab_size: int
     features: int
     partition: Optional[str] = None  # None → replicated; "model" → row-sharded
@@ -56,7 +64,7 @@ class Embedding(nn.Module):
     # * "psum": the same masked-gather+all-reduce exchange built explicitly
     #   with shard_map (embedding.sharded.sharded_lookup) — identical comm,
     #   but the cotangent scatter stays SHARD-LOCAL ([V/m, D] per device)
-    #   with the per-shard 3-way kernel gate. The planner's choice for big
+    #   with the per-shard backward gate. The planner's choice for big
     #   sharded tables at small batch. Requires ``mesh``.
     # * "a2a": ids routed to the owning shard and vectors back
     #   (embedding.sharded.all_to_all_lookup — comm drops from B·F·D to
@@ -73,26 +81,25 @@ class Embedding(nn.Module):
     capacity_factor: float = 2.0  # jax.sharding.Mesh (hashable, static)
     # Mixed-precision lookup: cast the table to this dtype before the
     # gather (master param stays ``param_dtype`` — the optimizer never sees
-    # reduced precision). STANDALONE the bf16 scatter-add backward is 18%
-    # faster (213k rows into 1M×16 on v5e: 5.8 → 4.8 ms) and the gather is
-    # row-latency-bound (unchanged) — but END-TO-END the DLRM b8192 step
-    # measured SLOWER (9.19 → 9.65 ms, 2026-08-19): the per-step f32→bf16
-    # table materialization and the bf16→f32 dense-cotangent up-cast cost
-    # more than the scatter saves, and the cast breaks XLA's
-    # pad+scatter/cotangent-producer fusion. Keep None (f32) for big tables
-    # on HBM; the knob exists for activation-dtype uniformity with bf16
-    # MLP stacks on small tables, not as a speed lever.
+    # reduced precision). The cast materializes a whole-table copy every
+    # step, so keep None (f32) for big tables; the knob exists for
+    # activation-dtype uniformity with bf16 MLP stacks on small tables,
+    # not as a speed lever.
     compute_dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
-    def __call__(self, ids: jnp.ndarray, dedup_plan: Optional[dict] = None) -> jnp.ndarray:
-        init = nn.initializers.variance_scaling(1.0, "fan_in", "uniform", out_axis=0)
-        if self.partition is not None:
-            init = nn.with_partitioning(init, (self.partition, None))
-        table = self.param(
-            "embedding", init, (self.vocab_size, self.features), self.param_dtype
-        )
-        table = jnp.asarray(table)  # unbox partitioned param
+    @property
+    def spec(self) -> P:
+        """Sharding of the table: rows over ``partition``, or replicated."""
+        return P(self.partition, None) if self.partition is not None else P()
+
+    def init(self, key, ids=None) -> dict:
+        shape = (self.vocab_size, self.features)
+        return {"embedding": embedding_init(key, shape, self.param_dtype)}
+
+    def apply(
+        self, params: dict, ids: jnp.ndarray, dedup_plan: Optional[dict] = None
+    ) -> tuple[jnp.ndarray, dict]:
+        table = params["embedding"]
         if self.compute_dtype is not None and table.dtype != self.compute_dtype:
             table = table.astype(self.compute_dtype)
         if (
@@ -108,16 +115,9 @@ class Embedding(nn.Module):
                 return_overflow=True,
             )
             # One psum'd scalar: ids served a 0 vector this step because a
-            # destination bucket overflowed (skewed batch). Sown into the
-            # "diagnostics" collection — a no-op unless the caller marks it
-            # mutable (tasks._apply does during training), so eval paths
-            # pay nothing. Rides the metrics dict as ``a2a_overflow``.
-            self.sow(
-                "diagnostics", "a2a_overflow", dropped,
-                init_fn=lambda: jnp.zeros((), jnp.int32),
-                reduce_fn=jnp.add,
-            )
-            return vecs
+            # destination bucket overflowed (skewed batch). Rides the
+            # train metrics dict as ``a2a_overflow``.
+            return vecs, {"a2a_overflow": dropped}
         if (
             self.lookup_mode == "psum"
             and self.partition is not None
@@ -126,37 +126,36 @@ class Embedding(nn.Module):
         ):
             from recommender_tpu.embedding.sharded import sharded_lookup
 
-            return sharded_lookup(table, ids, self.mesh)
+            return sharded_lookup(table, ids, self.mesh), {}
         # Narrow tables take the custom-VJP lookup (plain gather forward,
         # padded-width scatter backward) when THIS call scatters enough
-        # rows that XLA's 4x-slow narrow scatter dominates the padding
-        # overhead — purely volume-gated at PADDED_BWD_MIN_IDS (DLRM
-        # b8192 213k-id lookups: 14.3 -> 8.9 ms/step with the Trainer's
-        # split step; DIEN b1024 histories: 23.1 -> 14.0). Small lookups
-        # keep the native take — the padded backward's pad/slice copies
-        # regress them (DIEN b128: 3.9 -> 6.2 ms; MMOE per-table b8192:
-        # 10.1 -> 16.5).
-        # Measurements: benchmarks/bench_kernels.py; design: docs/DESIGN.md.
+        # rows — volume-gated at PADDED_BWD_MIN_IDS; small lookups keep the
+        # native take (the padded backward's pad/slice copies cost more
+        # than they save there). Every other lookup takes ``embedding_take``,
+        # whose backward accumulates in f32 for bf16 tables too. Design:
+        # docs/DESIGN.md.
         from recommender_tpu.ops.embedding_kernels import (
             embedding_lookup,
             embedding_lookup_dedup,
+            embedding_take,
             use_padded_backward,
         )
 
         # Host-precomputed dedup plan riding in the batch (data/dedup.py):
         # Zipf-skewed ids collapse ~6x to unique rows, and the plan-driven
         # backward (segment-sum into unique slots + small table scatter)
-        # undercuts even the padded scatter. Replicated tables only — the
+        # can undercut the padded scatter. Replicated tables only — the
         # plan indexes the device-resident flat id stream (see
         # ops.embedding_kernels.embedding_lookup_dedup scope note).
         if dedup_plan is not None and self.partition is None:
             return embedding_lookup_dedup(
                 table, ids,
                 dedup_plan["perm"], dedup_plan["slot"], dedup_plan["uniq"],
-            )
+            ), {}
         if use_padded_backward(table.shape, ids.size):
-            return embedding_lookup(table, ids)
-        return jnp.take(table, ids, axis=0)
+            return embedding_lookup(table, ids), {}
+        return embedding_take(table, ids), {}
+
 
 def bag_combine(emb: jnp.ndarray, weights: jnp.ndarray, combiner: str) -> jnp.ndarray:
     """Combine a bag of embeddings [..., K, D] with weights [..., K] → [..., D].

@@ -1,7 +1,7 @@
 """Bipartite user–item graph store + PinSAGE importance sampling (host side).
 
-TPU-native replacement for DGL's heterograph machinery in
-``/root/reference/pinsage/train/data_loader.py``:
+Replacement for DGL's heterograph machinery in
+``pinsage/train/data_loader.py``:
 
 * ``BipartiteGraph``      — user→item and item→user CSRs with edge data
   (rating/timestamp), replacing ``dgl.heterograph``.

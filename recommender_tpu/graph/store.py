@@ -1,6 +1,6 @@
 """Host-side weighted graph store (CSR) with O(1) alias sampling.
 
-TPU-native replacement for the DGL C++ graph kernels the reference leans on
+Replacement for the DGL C++ graph kernels the reference leans on
 (``eges/util.py:116-132`` graph build, ``eges/data_loader.py:31-32`` weighted
 ``random_walk``, ``pinsage/train/data_loader.py`` samplers — SURVEY.md §2.7
 item 3). The store is plain numpy arrays:

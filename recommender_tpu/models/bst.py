@@ -9,7 +9,7 @@ target_item/cat, pos_his_item/cat padded with 0, label), same
 ``partition``/``lookup_mode``/``embed_param_dtype`` knobs via
 ``SequenceBase``, trained by ``cli/train_dien --model_type BST``.
 
-TPU angle: the whole forward is batched MXU matmuls — no ``lax.scan`` at
+The whole forward is batched matmuls — no ``lax.scan`` at
 all — so unlike DIEN there is no sequential dependency to unroll or
 remat; T=100 costs one [B, 101, 101] attention instead of 100 dependent
 GRU steps.
@@ -23,7 +23,9 @@ fixed-shape, pad-robust readout contract as the rest of the family
 """
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 
 from recommender_tpu.models.dien import SequenceBase
@@ -31,44 +33,49 @@ from recommender_tpu.nn.sequence import masked_mean_pool
 from recommender_tpu.nn.transformer import TransformerBlock
 
 
+@dataclasses.dataclass(frozen=True)
 class BST(SequenceBase):
-    # 2 blocks / 4 heads is the measured floor that passes BOTH mechanism
-    # ladders: 1 block saturates the drift (order) regime but is STUCK at
-    # 0.63 AUC on fine-grained membership (50 distractor categories) and
-    # degrades with more steps, while 2 blocks hit 1.0 by 3k steps —
-    # probe sweep in logs/bst_membership_probe_r5.log
+    """Extra params: ``block_i`` (TransformerBlock), ``positions/embedding``."""
+
+    # 2 blocks / 4 heads is the smallest setting that passes BOTH mechanism
+    # ladders (tests/test_synthetic_drift.py, test_synthetic_membership.py):
+    # 1 block learns the order (drift) regime but stalls at 0.63 AUC on
+    # fine-grained membership (50 distractor categories), while 2 blocks
+    # reach 1.0 by 3k steps.
     num_heads: int = 4
     num_blocks: int = 2
     ffn_mult: int = 4
     max_len: int = 512  # position table size; histories up to max_len-1
 
-    def setup(self):
-        super().setup()
-        dim = self.item_dim + self.cat_dim
-        self.blocks = [
-            TransformerBlock(dim=dim, num_heads=self.num_heads,
-                             ffn_mult=self.ffn_mult, name=f"block_{i}")
-            for i in range(self.num_blocks)
-        ]
-        self.positions = nn.Embed(self.max_len, dim, name="positions")
+    @property
+    def block(self) -> TransformerBlock:
+        return TransformerBlock(dim=self.dim, num_heads=self.num_heads, ffn_mult=self.ffn_mult)
 
-    def __call__(self, batch: dict, *, train: bool = False) -> jnp.ndarray:
-        mask = (batch["pos_his_item"] != 0).astype(jnp.float32)  # [B, T]
-        target, his = self.embed_sets(
-            [batch["target_item"], batch["pos_his_item"]],
-            [batch["target_cat"], batch["pos_his_cat"]],
-        )  # [B, D], [B, T, D]
+    def _init_extra(self, key) -> dict:
+        keys = jax.random.split(key, self.num_blocks + 1)
+        x = jax.ShapeDtypeStruct((1, 1, self.dim), jnp.float32)
+        params = {f"block_{i}": self.block.init(keys[i], x, None) for i in range(self.num_blocks)}
+        # learned positions: normal with variance 1/dim
+        params["positions"] = {
+            "embedding": jax.nn.initializers.variance_scaling(
+                1.0, "fan_in", "normal", out_axis=0
+            )(keys[-1], (self.max_len, self.dim))
+        }
+        return params
+
+    def _forward(self, params, target, his, mask):
+        his = his[0]  # [B, T, D]
         B, T = mask.shape
         # sequence = history steps 0..T-1, target at position T
         seq = jnp.concatenate([his, target[:, None, :]], axis=1)  # [B, T+1, D]
         valid = jnp.concatenate(
             [mask, jnp.ones((B, 1), jnp.float32)], axis=1)  # [B, T+1]
-        x = seq + self.positions(jnp.arange(T + 1))[None]
+        x = seq + params["positions"]["embedding"][: T + 1][None]
         # keys masked to valid positions; pad QUERIES produce garbage that
-        # the masked readout never reads (nn/transformer.py contract —
-        # the block picks plain vs flash attention by L)
-        for blk in self.blocks:
-            x = blk(x, valid)
+        # the masked readout never reads (nn/transformer.py contract)
+        for i in range(self.num_blocks):
+            x = self.block.apply(params[f"block_{i}"], x, valid)
         h_target = x[:, -1]
         pooled = masked_mean_pool(x[:, :-1], mask)
-        return self.head(h_target, pooled, train)
+        # head input: [target-position output ∥ pooled history outputs]
+        return h_target, pooled, None

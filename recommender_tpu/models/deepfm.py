@@ -1,6 +1,6 @@
 """DeepFM — FM second-order cross + deep tower over a shared embedding.
 
-Behavioral parity with ``/root/reference/ctr/model.py:6-31``:
+Behavioral parity with ``ctr/model.py:6-31``:
 * one shared table for all categorical features;
 * FM 2nd-order term via the sum-square/square-sum identity
   (``ctr/model.py:21-23``; no 1st-order linear term, as in the reference);
@@ -11,17 +11,22 @@ Hidden activations are ReLU (see divergence note in ``dlrm.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 from recommender_tpu.embedding.table import Embedding
 from recommender_tpu.nn.interactions import fm_cross
 from recommender_tpu.nn.mlp import MLP
+from recommender_tpu.parallel.partitioning import table_specs
 
 
-class DeepFM(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class DeepFM:
+    """Params: ``embedding/embedding``, ``mlp/Dense_i``."""
+
     vocab_size: int
     embed_dim: int = 16
     num_int: int = 13
@@ -33,36 +38,44 @@ class DeepFM(nn.Module):
     mesh: Optional[object] = None
     capacity_factor: float = 2.0  # a2a bucket size; see Embedding.capacity_factor
     embed_compute_dtype: Optional[jnp.dtype] = None  # see Embedding.compute_dtype
-    # Storage dtype of the table param itself. bf16 is a measured ~20% step
-    # win at DLRM scale on v5e (8.89 -> 7.30 ms b8192: half-byte scatter
-    # backward + half-byte Adam table update, no cast traffic) and is
-    # QUALITY-NEUTRAL: the Trainer auto-enables stochastic rounding for
-    # low-precision params (core/optim.py adam_sr + SR param writes), which
-    # puts the 300-step fingerprint inside f32's own init-seed noise band
-    # (0.726-0.744; plain round-to-nearest dropped it to 0.700) and the
-    # 3k-step AUC is equal. bench.py runs this config; f32 stays the
-    # default for bit-parity with the reference's replicated f32 tables
-    # (benchmarks/exp_bf16_sr.py, exp_bf16_sr2.py, RESULTS.md).
-    embed_param_dtype: jnp.dtype = jnp.float32
+    embed_param_dtype: jnp.dtype = jnp.float32  # bf16 + SR: see DLRM.embed_param_dtype
 
-    def setup(self):
-        self.embedding = Embedding(
+    @property
+    def embedding(self) -> Embedding:
+        return Embedding(
             self.vocab_size, self.embed_dim, partition=self.partition,
             lookup_mode=self.lookup_mode, mesh=self.mesh,
             capacity_factor=self.capacity_factor,
             compute_dtype=self.embed_compute_dtype,
             param_dtype=self.embed_param_dtype,
         )
-        self.mlp = MLP(self.mlp_units, final_activation=None)
 
-    def __call__(self, batch: dict, *, train: bool = False) -> jnp.ndarray:
+    @property
+    def mlp(self) -> MLP:
+        return MLP(tuple(self.mlp_units), final_activation=None)
+
+    def sharded_params(self) -> dict:
+        return table_specs({"embedding": self.embedding})
+
+    def init(self, key, example: dict):
+        k_emb, k_mlp = jax.random.split(key)
+        in_dim = self.num_cat * self.embed_dim + self.num_int
+        params = {
+            "embedding": self.embedding.init(k_emb),
+            "mlp": self.mlp.init(k_mlp, in_dim),
+        }
+        return params, {}
+
+    def apply(self, params, model_state, batch: dict, *, train: bool = False, rng=None):
         ints = batch["int_features"].reshape(-1, self.num_int)
         cats = batch["cat_features"].reshape(-1, self.num_cat)
         # Optional host-precomputed dedup plan (data.pipeline.with_dedup_plans).
-        emb = self.embedding(cats, dedup_plan=batch.get("cat_dedup"))  # [B, F, D]
+        emb, diag = self.embedding.apply(
+            params["embedding"], cats, dedup_plan=batch.get("cat_dedup")
+        )  # [B, F, D]
         fm = fm_cross(emb)  # [B]
         deep_in = jnp.concatenate(
             [emb.reshape(emb.shape[0], -1), ints], axis=1
         )
-        deep = jnp.squeeze(self.mlp(deep_in, train=train), axis=-1)  # [B]
-        return nn.sigmoid(fm + deep)
+        deep = jnp.squeeze(self.mlp.apply(params["mlp"], deep_in), axis=-1)  # [B]
+        return jax.nn.sigmoid(fm + deep), model_state, diag

@@ -49,14 +49,15 @@ def pinsage_train_batches(
 
 def make_pinsage_task(model, delta: float = 1.0):
     def loss_fn(params, model_state, batch, rng, train):
-        (pos_score, neg_score) = model.apply(
-            {"params": params, **model_state}, batch, train=train
+        (pos_score, neg_score), new_ms, diag = model.apply(
+            params, model_state, batch, train=train, rng=rng
         )
         per_ex = margin_loss(pos_score, neg_score, delta)
         aux = {
             "pos_score": jnp.mean(pos_score),
             "neg_score": jnp.mean(neg_score),
+            **diag,
         }
-        return per_ex, aux, model_state
+        return per_ex, aux, new_ms
 
     return loss_fn

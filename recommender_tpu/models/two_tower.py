@@ -2,9 +2,9 @@
 
 Beyond-reference model (the reference's only retrieval trainer is the
 PinSage GNN): the two-tower + in-batch sampled softmax is the standard
-industrial retrieval baseline (YouTube DNN / dual-encoder family), and
-on TPU it is one dense [B, D]×[D, B] MXU matmul per step — every other
-example in the global batch is a negative, free.
+industrial retrieval baseline (YouTube DNN / dual-encoder family): one
+dense [B, D]×[D, B] matmul per step — every other example in the global
+batch is a negative, free.
 
 Pipeline fit: the ITEM tower exports a corpus exactly like PinSage's
 reprs, so the whole serving stack applies unchanged
@@ -24,17 +24,23 @@ bias fix for non-uniform samplers, out of scope for uniform streams).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from recommender_tpu.embedding.table import Embedding
+from recommender_tpu.nn.layers import merge_diagnostics
 from recommender_tpu.nn.mlp import MLP
+from recommender_tpu.parallel.partitioning import table_specs
 
 
-class TwoTower(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class TwoTower:
+    """Params: ``user_embedding``, ``item_embedding``, [``cat_embedding``],
+    ``user_tower``, ``item_tower``. ``apply`` returns ``(u, v)`` reprs."""
+
     user_vocab: int
     item_vocab: int
     cat_vocab: int = 0  # 0 = no item category feature
@@ -47,38 +53,64 @@ class TwoTower(nn.Module):
     mesh: Optional[object] = None
     embed_param_dtype: jnp.dtype = jnp.float32
 
-    def setup(self):
+    @property
+    def tables(self) -> dict:
         kw = dict(partition=self.partition, lookup_mode=self.lookup_mode,
                   mesh=self.mesh, param_dtype=self.embed_param_dtype)
-        self.user_embedding = Embedding(self.user_vocab, self.embed_dim, **kw)
-        self.item_embedding = Embedding(self.item_vocab, self.embed_dim, **kw)
+        tables = {
+            "user_embedding": Embedding(self.user_vocab, self.embed_dim, **kw),
+            "item_embedding": Embedding(self.item_vocab, self.embed_dim, **kw),
+        }
         if self.cat_vocab:
-            self.cat_embedding = Embedding(self.cat_vocab, self.embed_dim, **kw)
-        self.user_tower = MLP((*self.tower_units, self.repr_dim))
-        self.item_tower = MLP((*self.tower_units, self.repr_dim))
+            tables["cat_embedding"] = Embedding(self.cat_vocab, self.embed_dim, **kw)
+        return tables
 
-    def user_repr(self, user_id: jnp.ndarray) -> jnp.ndarray:
+    @property
+    def tower(self) -> MLP:
+        return MLP((*self.tower_units, self.repr_dim))
+
+    def sharded_params(self) -> dict:
+        return table_specs(self.tables)
+
+    def init(self, key, example: dict):
+        keys = jax.random.split(key, len(self.tables) + 2)
+        params = {name: emb.init(k) for k, (name, emb) in zip(keys, self.tables.items())}
+        item_in = self.embed_dim * (2 if self.cat_vocab else 1)
+        params["user_tower"] = self.tower.init(keys[-2], self.embed_dim)
+        params["item_tower"] = self.tower.init(keys[-1], item_in)
+        return params, {}
+
+    def _user(self, params, user_id):
+        x, diag = self.tables["user_embedding"].apply(params["user_embedding"], user_id)
+        r = self.tower.apply(params["user_tower"], x.astype(jnp.float32))
+        return r / jnp.linalg.norm(r, axis=-1, keepdims=True).clip(1e-6), diag
+
+    def _item(self, params, item_id, item_cat=None):
+        tables = self.tables
+        x, diag = tables["item_embedding"].apply(params["item_embedding"], item_id)
+        x = x.astype(jnp.float32)
+        if self.cat_vocab:
+            if item_cat is None:
+                raise ValueError("model built with cat_vocab needs item_cat")
+            c, d_c = tables["cat_embedding"].apply(params["cat_embedding"], item_cat)
+            x = jnp.concatenate([x, c.astype(jnp.float32)], axis=-1)
+            diag = merge_diagnostics(diag, d_c)
+        r = self.tower.apply(params["item_tower"], x)
+        return r / jnp.linalg.norm(r, axis=-1, keepdims=True).clip(1e-6), diag
+
+    def user_repr(self, params, user_id: jnp.ndarray) -> jnp.ndarray:
         """[B] user ids → [B, repr_dim], L2-normalized (cosine scoring —
         the bounded-logit convention of the dual-encoder family)."""
-        x = self.user_embedding(user_id).astype(jnp.float32)
-        r = self.user_tower(x)
-        return r / jnp.linalg.norm(r, axis=-1, keepdims=True).clip(1e-6)
+        return self._user(params, user_id)[0]
 
-    def item_repr(self, item_id: jnp.ndarray,
+    def item_repr(self, params, item_id: jnp.ndarray,
                   item_cat: Optional[jnp.ndarray] = None) -> jnp.ndarray:
-        x = self.item_embedding(item_id).astype(jnp.float32)
-        if self.cat_vocab:
-            assert item_cat is not None, "model built with cat_vocab"
-            x = jnp.concatenate(
-                [x, self.cat_embedding(item_cat).astype(jnp.float32)], axis=-1
-            )
-        r = self.item_tower(x)
-        return r / jnp.linalg.norm(r, axis=-1, keepdims=True).clip(1e-6)
+        return self._item(params, item_id, item_cat)[0]
 
-    def __call__(self, batch: dict, *, train: bool = False):
-        u = self.user_repr(batch["user_id"])
-        v = self.item_repr(batch["item_id"], batch.get("item_cat"))
-        return u, v
+    def apply(self, params, model_state, batch: dict, *, train: bool = False, rng=None):
+        u, d_u = self._user(params, batch["user_id"])
+        v, d_v = self._item(params, batch["item_id"], batch.get("item_cat"))
+        return (u, v), model_state, merge_diagnostics(d_u, d_v)
 
 
 def make_two_tower_task(model: TwoTower):
@@ -88,20 +120,16 @@ def make_two_tower_task(model: TwoTower):
     retrieval accuracy proxy for train-time monitoring; certified quality
     uses the full-corpus hit-rate protocol (retrieval/eval.py) offline."""
 
-    from recommender_tpu.models.tasks import _apply, _pop_diagnostics
-
     def loss_fn(params, model_state, batch, rng, train):
-        (u, v), new_ms = _apply(model, params, model_state, batch, train)
+        (u, v), new_ms, diag = model.apply(params, model_state, batch, train=train, rng=rng)
         logits = (u @ v.T) / model.temperature  # [B, B]
         labels = jnp.arange(u.shape[0])
         per_ex = -jax.nn.log_softmax(logits, axis=-1)[labels, labels]
         top1 = jnp.mean((jnp.argmax(logits, axis=-1) == labels))
-        aux = {"inbatch_top1": top1}
-        new_ms, aux = _pop_diagnostics(new_ms, aux)
-        return per_ex, aux, new_ms
+        return per_ex, {"inbatch_top1": top1, **diag}, new_ms
 
     def eval_fn(params, model_state, batch):
-        (u, v), _ = _apply(model, params, model_state, batch, False)
+        (u, v), _, _ = model.apply(params, model_state, batch)
         logits = (u @ v.T) / model.temperature
         labels = jnp.arange(u.shape[0])
         hit = (jnp.argmax(logits, axis=-1) == labels).astype(jnp.float32)
@@ -141,9 +169,7 @@ def corpus_item_reprs(model: TwoTower, params, num_items: int,
 
     @jax.jit
     def reprs(ids, cats):
-        kw = {} if cats is None else {"item_cat": cats}
-        return model.apply({"params": params}, ids, method=model.item_repr,
-                           **kw)
+        return model.item_repr(params, ids, cats)
 
     out = []
     for s in range(0, num_items, batch_size):
@@ -152,6 +178,6 @@ def corpus_item_reprs(model: TwoTower, params, num_items: int,
         ids_p = np.concatenate([ids, np.zeros(pad, np.int32)]) if pad else ids
         cats = None if item_cat is None else jnp.asarray(
             np.asarray(item_cat)[ids_p])
-        r = np.asarray(reprs(jnp.asarray(ids_p), cats))
+        r = jax.device_get(reprs(jnp.asarray(ids_p), cats))
         out.append(r[: len(ids)])
     return np.concatenate(out, axis=0)

@@ -6,12 +6,12 @@ Parity targets:
   ``self_interaction`` and ``skip_gather`` flags. With ``skip_gather=True``
   the upper-triangle values are kept in a zero-filled dense ``F*F`` output
   (the variant DLRM actually uses; its top-MLP input width depends on it,
-  ``ctr/model.py:55``). This is the TPU-preferred variant: one batched
-  matmul on the MXU plus a static mask — no gather at all.
+  ``ctr/model.py:55``): one batched matmul plus a static mask, no gather.
 """
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 
@@ -26,8 +26,9 @@ def fm_cross(embeddings: jnp.ndarray) -> jnp.ndarray:
     return 0.5 * jnp.sum(sum_sq - sq_sum, axis=1)  # [B]
 
 
-class DotInteraction(nn.Module):
-    """Pairwise dot products between feature embeddings.
+@dataclasses.dataclass(frozen=True)
+class DotInteraction:
+    """Pairwise dot products between feature embeddings (no params).
 
     Input [B, F, D] → output:
       * ``skip_gather=True``:  [B, F*F] (upper triangle kept, rest zeros)
@@ -37,7 +38,6 @@ class DotInteraction(nn.Module):
     self_interaction: bool = False
     skip_gather: bool = True
 
-    @nn.compact
     def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
         b, f, d = x.shape
         xc = x.astype(jnp.bfloat16)

@@ -10,7 +10,7 @@
   (``dien/layers.py:89-108``).
 
 All are pure, jittable, and return **per-example** losses unless noted, so
-callers control global-batch scaling explicitly (the TPU-native analogue of
+callers control global-batch scaling explicitly (the analogue of
 ``tf.nn.compute_average_loss``, ``dien/distribute_train.py:53``).
 """
 from __future__ import annotations

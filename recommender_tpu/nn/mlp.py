@@ -1,47 +1,52 @@
 """Dense towers.
 
 Covers the reference's four per-subproject ``MLP`` layers
-(``ctr/layers.py:5-14``, ``dien/layers.py:20-31`` (with input BatchNorm),
-``esmm/layers.py:4-13``) as one configurable module.
+(``ctr/layers.py:5-14``, ``dien/layers.py:20-31``, ``esmm/layers.py:4-13``)
+as one configurable layer. The DIEN variant's input BatchNorm
+(``dien/layers.py:22``) is applied by its owner (``models/dien.py``), which
+also holds the running statistics.
 
-TPU notes: hidden matmuls run in bf16 on the MXU (params kept in f32,
-outputs accumulated in f32 via ``preferred_element_type``-equivalent dtype
-promotion inside flax Dense); widths should be multiples of 128 where the
-caller can choose them freely.
+Hidden matmuls run in bf16 on f32-stored params; the final activation runs
+in f32 for numerically clean sigmoids.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Sequence
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
+from recommender_tpu.nn.layers import dense, dense_init
 
-class MLP(nn.Module):
-    """Stack of Dense layers.
+
+@dataclasses.dataclass(frozen=True)
+class MLP:
+    """Stack of dense layers ``Dense_0 .. Dense_{n-1}``.
 
     ``units[:-1]`` use ``activation``; the last layer uses
-    ``final_activation`` (None = linear). ``input_batch_norm`` reproduces
-    ``dien/layers.py:22`` (BatchNorm applied to the input before any Dense).
+    ``final_activation`` (None = linear).
     """
 
     units: Sequence[int]
-    activation: Callable = nn.relu
+    activation: Callable = jax.nn.relu
     final_activation: Optional[Callable] = None
-    input_batch_norm: bool = False
     compute_dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x, *, train: bool = False):
+    def init(self, key, in_dim: int) -> dict:
+        keys = jax.random.split(key, len(self.units))
+        dims = (in_dim, *self.units)
+        return {
+            f"Dense_{i}": dense_init(keys[i], dims[i], dims[i + 1])
+            for i in range(len(self.units))
+        }
+
+    def apply(self, params: dict, x: jnp.ndarray) -> jnp.ndarray:
         orig_dtype = x.dtype
-        if self.input_batch_norm:
-            x = nn.BatchNorm(use_running_average=not train, dtype=jnp.float32)(x)
-        x = x.astype(self.compute_dtype)
-        for i, unit in enumerate(self.units):
-            x = nn.Dense(unit, dtype=self.compute_dtype, param_dtype=jnp.float32)(x)
+        for i in range(len(self.units)):
+            x = dense(params[f"Dense_{i}"], x, self.compute_dtype)
             if i < len(self.units) - 1:
                 x = self.activation(x)
             elif self.final_activation is not None:
-                # final activation in f32 for numerically clean sigmoids
                 x = self.final_activation(x.astype(jnp.float32))
         return x.astype(jnp.float32) if x.dtype != orig_dtype else x

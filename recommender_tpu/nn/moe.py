@@ -1,49 +1,53 @@
 """Mixture-of-experts gating (MMOE).
 
-TPU-native re-design of ``/root/reference/esmm/mmoe.py:8-46``: the reference
-runs its 8 experts as a serial Python loop of small MLPs; here all experts
-run as ONE batched einsum per layer (weights stacked on a leading expert
-axis via ``nn.vmap``), so the MXU sees a single large contraction
-(SURVEY.md §2.6 "Expert parallel": experts are tiny — batched vmap einsum).
-The per-task softmax gates then mix expert outputs with one more einsum.
+Re-design of ``esmm/mmoe.py:8-46``: the reference runs its
+8 experts as a serial Python loop of small MLPs; here the expert params are
+stacked on a leading expert axis and ``jax.vmap`` runs all experts as ONE
+batched contraction per layer. The per-task softmax gates then mix expert
+outputs with one more einsum.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
+from recommender_tpu.nn.layers import dense, dense_init
 from recommender_tpu.nn.mlp import MLP
 
 
-class ExpertBank(nn.Module):
-    """num_experts parallel MLPs evaluated as stacked einsums.
-
-    [B, D] → [B, E, H]."""
+@dataclasses.dataclass(frozen=True)
+class ExpertBank:
+    """num_experts parallel MLPs with stacked params ``experts/Dense_i``
+    ([E, ...] leaves). [B, D] → [B, E, H]."""
 
     num_experts: int
     units: Sequence[int]
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        vmapped = nn.vmap(
-            MLP,
-            in_axes=None,
-            out_axes=1,
-            axis_size=self.num_experts,
-            variable_axes={"params": 0},
-            split_rngs={"params": True},
-        )
-        return vmapped(self.units, final_activation=nn.relu, name="experts")(x)
+    @property
+    def mlp(self) -> MLP:
+        return MLP(tuple(self.units), final_activation=jax.nn.relu)
+
+    def init(self, key, x: jnp.ndarray) -> dict:
+        keys = jax.random.split(key, self.num_experts)
+        in_dim = x.shape[-1]
+        return {"experts": jax.vmap(lambda k: self.mlp.init(k, in_dim))(keys)}
+
+    def apply(self, params: dict, x: jnp.ndarray) -> jnp.ndarray:
+        return jax.vmap(lambda p: self.mlp.apply(p, x), out_axes=1)(params["experts"])
 
 
-class MMOEGate(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class MMOEGate:
     """Per-task softmax gate over experts: [B, D], [B, E, H] → [B, H]."""
 
     num_experts: int
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, expert_out: jnp.ndarray) -> jnp.ndarray:
-        w = nn.softmax(nn.Dense(self.num_experts)(x), axis=-1)  # [B, E]
+    def init(self, key, x: jnp.ndarray) -> dict:
+        return {"Dense_0": dense_init(key, x.shape[-1], self.num_experts)}
+
+    def apply(self, params: dict, x: jnp.ndarray, expert_out: jnp.ndarray) -> jnp.ndarray:
+        w = jax.nn.softmax(dense(params["Dense_0"], x), axis=-1)  # [B, E]
         return jnp.einsum("be,beh->bh", w, expert_out)

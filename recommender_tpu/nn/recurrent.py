@@ -1,11 +1,11 @@
 """Recurrent sequence layers as ``lax.scan`` — GRU and attention-gated AUGRU.
 
-TPU-native re-design of the reference's two hot sequential loops
+Re-design of the reference's two hot sequential loops
 (``dien/distribute_train.py`` call stack, SURVEY.md §3.2):
 
 * ``GRU``    — ``keras.layers.GRU(return_sequences=True)`` used by
   InterestExtract (``dien/layers.py:76-133``). Gates are fused into one
-  [D+H, 3H] matmul per step so each scan iteration is a single MXU call.
+  [D+H, 3H] matmul per step so each scan iteration is a single matmul.
 * ``AUGRU``  — the attention-gated GRU cell (``dien/layers.py:161-188``):
   the update gate is scaled by the per-step attention score before the
   convex combination. The reference smuggles the score through the last
@@ -20,21 +20,22 @@ layout; the public API is batch-major [B, T, ...].
 """
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 
-# Sequences up to this length unroll fully (no loop at all). Measured on
-# v5e, GRU+AUGRU fwd+bwd B=1024 T=100 H=36: unroll 8 → 4.6 ms, 20 → 4.4,
-# 50 → 5.6, full → 2.1 ms. Partial unrolls beyond ~20 regress before full
-# unroll wins, so the policy is binary: full if short, else the default
-# window. Longer sequences keep the scan to bound compile time/code size.
+from recommender_tpu.nn.layers import lecun_normal
+
+# Sequences up to this length unroll fully (no loop at all); longer ones
+# keep the scan (window of 8) to bound compile time and code size. The
+# policy is binary because partial unrolls beyond ~20 steps regressed
+# before full unroll won. Not yet re-tuned on the current GPU.
 FULL_UNROLL_MAX_T = 128
 
-# Above this length, rematerializing each scan step (jax.checkpoint) is
-# FASTER than storing activations — recompute beats the activation HBM
-# traffic. Measured on v5e, DIEN b128 (both recurrences + model):
-# T=250 plain 7.9 vs remat 8.3 ms; T=500 13.3 vs 11.2; T=1000 25.1 vs 16.6.
+# Above this length each scan step is rematerialized (jax.checkpoint):
+# recomputing the step is cheaper than storing and re-reading its
+# activations from HBM. Not yet re-tuned on the current GPU.
 REMAT_MIN_T = 256
 
 
@@ -63,36 +64,47 @@ def _gru_step_hoisted(h, zr_x, c_x, wh_gates, wh_cand):
     return (1.0 - z) * h + z * c
 
 
-class GRU(nn.Module):
+def _gru_params(key, d: int, h: int) -> dict:
+    kg, kc = jax.random.split(key)
+    return {
+        "w_gates": lecun_normal(kg, (h + d, 2 * h)),
+        "b_gates": jnp.zeros((2 * h,)),
+        "w_cand": lecun_normal(kc, (h + d, h)),
+        "b_cand": jnp.zeros((h,)),
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class GRU:
     """Masked GRU over [B, T, D]; returns all hidden states [B, T, H].
 
     ``remat`` rematerializes each scan step on the backward pass
     (``jax.checkpoint``): O(T) → O(1) activation memory per step, and past
-    a few hundred steps it is also FASTER (see REMAT_MIN_T). ``None``
+    a few hundred steps it can also be faster (see REMAT_MIN_T). ``None``
     (default) = auto: on for T > REMAT_MIN_T; a bool forces it.
 
     ``unroll`` replicates the step body inside the scan loop: at DIEN scale
-    (B=128, H=36) each step is a single tiny MXU call and the loop is
+    (B=128, H=36) each step is a single tiny matmul and the loop is
     bound by per-iteration overhead. ``None`` (default) = auto: unroll
-    FULLY for T ≤ FULL_UNROLL_MAX_T (2.2× on the recurrence, see module
-    constants), else window of 8; an int forces that window."""
+    FULLY for T ≤ FULL_UNROLL_MAX_T (see module constants), else window
+    of 8; an int forces that window."""
 
     hidden: int
     remat: bool | None = None
     unroll: int | None = None
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
+    def init(self, key, x: jnp.ndarray, mask: jnp.ndarray) -> dict:
+        return _gru_params(key, x.shape[-1], self.hidden)
+
+    def apply(self, params: dict, x: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
         b, t, d = x.shape
         h = self.hidden
-        w_gates = self.param("w_gates", nn.initializers.lecun_normal(), (h + d, 2 * h))
-        b_gates = self.param("b_gates", nn.initializers.zeros, (2 * h,))
-        w_cand = self.param("w_cand", nn.initializers.lecun_normal(), (h + d, h))
-        b_cand = self.param("b_cand", nn.initializers.zeros, (h,))
+        w_gates, b_gates = params["w_gates"], params["b_gates"]
+        w_cand, b_cand = params["w_cand"], params["b_cand"]
 
         xs = jnp.swapaxes(x, 0, 1)  # [T, B, D]
         ms = jnp.swapaxes(mask.astype(x.dtype), 0, 1)[..., None]  # [T, B, 1]
-        # hoist input projections: one big MXU matmul over all T·B rows
+        # hoist input projections: one big matmul over all T·B rows
         # (w_gates rows 0..h-1 multiply h, rows h.. multiply x — see
         # _gru_step_hoisted; param layout matches concat([h, x]) @ w_gates)
         zr_x = jnp.einsum("tbd,dk->tbk", xs, w_gates[h:]) + b_gates
@@ -112,7 +124,8 @@ class GRU(nn.Module):
         return jnp.swapaxes(hs, 0, 1)  # [B, T, H]
 
 
-class AUGRU(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class AUGRU:
     """Attention-gated GRU; consumes hidden states + scores, returns final state.
 
     ``x``: [B, T, D] (interest-extractor hidden states),
@@ -124,16 +137,16 @@ class AUGRU(nn.Module):
     remat: bool | None = None  # see GRU.remat
     unroll: int | None = None  # see GRU.unroll
 
-    @nn.compact
-    def __call__(
-        self, x: jnp.ndarray, att: jnp.ndarray, mask: jnp.ndarray
+    def init(self, key, x: jnp.ndarray, att: jnp.ndarray, mask: jnp.ndarray) -> dict:
+        return _gru_params(key, x.shape[-1], self.hidden)
+
+    def apply(
+        self, params: dict, x: jnp.ndarray, att: jnp.ndarray, mask: jnp.ndarray
     ) -> jnp.ndarray:
         b, t, d = x.shape
         h = self.hidden
-        w_gates = self.param("w_gates", nn.initializers.lecun_normal(), (h + d, 2 * h))
-        b_gates = self.param("b_gates", nn.initializers.zeros, (2 * h,))
-        w_cand = self.param("w_cand", nn.initializers.lecun_normal(), (h + d, h))
-        b_cand = self.param("b_cand", nn.initializers.zeros, (h,))
+        w_gates, b_gates = params["w_gates"], params["b_gates"]
+        w_cand, b_cand = params["w_cand"], params["b_cand"]
 
         xs = jnp.swapaxes(x, 0, 1)  # [T, B, D]
         as_ = jnp.swapaxes(att, 0, 1)  # [T, B, 1]

@@ -2,98 +2,70 @@
 
 No reference counterpart (the reference's sequence zoo stops at DIEN);
 added because self-attention is the standard modern alternative to the
-AUGRU recurrence and it is a strictly better TPU fit at training
-lengths: the whole block is batched matmuls (MXU) with NO sequential
-scan — one fused attention over [B, L, D] instead of T dependent steps.
+AUGRU recurrence: the whole block is batched matmuls with NO sequential
+scan — one attention over [B, L, D] instead of T dependent steps.
 
 Masking contract matches the rest of the sequence stack: pad positions
 (id 0) are excluded as KEYS; their own outputs are dropped by the
 caller's masked pooling (they attend freely — garbage-in positions whose
 outputs are never read).
 
-Two attention paths behind ONE parameter set (explicit q/k/v/out
-projections, so the choice is a pure runtime dispatch):
-
-* **plain** (the default at EVERY length): materialize the [B, H, L, L]
-  scores and let XLA fuse the softmax chain.
-* **flash** (opt-in, `use_flash=True`): JAX's Pallas TPU flash-attention
-  kernel — blocked softmax(QKᵀ)V, no L×L materialization. The pad mask
-  rides as SegmentIds (valid=1, pad=0), head dims zero-pad to a 128-lane
-  multiple and sequence length to a 128 block multiple (inert segment-0
-  rows), both sliced away after.
-
-Flash is NOT the default because it MEASURABLY LOSES at every
-recommender-scale shape tried on v5e (RESULTS.md r5): BST Dh=9 T=1000
-b128 160 vs 66.5 ms plain (14× lane padding), Dh=64 T=1000 b128 92.9 vs
-50.2, Dh=64 T=4000 b16 130 vs 68. The kernel's win domain is LLM-scale
-head dims/sequence products where the score matrix genuinely cannot
-materialize; at D≤128 XLA's fused plain attention is faster everywhere
-we can reach. Same evidence class as IVF-vs-brute: capability kept and
-tested, default stays with the measurement.
+Attention materializes the [B, H, L, L] scores and lets XLA fuse the
+softmax chain. At BST's head dim (9) no fused attention kernel applies.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-
-def _flash_mha(q, k, v, valid):
-    """[B, L, H, Dh] heads-last inputs → flash kernel ([B, H, L, Dh'] with
-    lane-padded head dim) → [B, L, H, Dh]."""
-    from jax.experimental.pallas.ops.tpu.flash_attention import (
-        SegmentIds,
-        flash_attention,
-    )
-
-    L, Dh = q.shape[1], q.shape[-1]
-    pad_d = (-Dh) % 128
-    # the kernel tiles the sequence in 128-blocks too: pad L with inert
-    # positions (segment 0 — excluded as keys, garbage queries sliced off)
-    pad_l = (-L) % 128
-    if pad_d or pad_l:
-        widths = [(0, 0), (0, pad_l), (0, 0), (0, pad_d)]
-        q, k, v = (jnp.pad(x, widths) for x in (q, k, v))
-    seg = jnp.pad(valid.astype(jnp.int32), [(0, 0), (0, pad_l)])
-    out = flash_attention(
-        q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
-        v.transpose(0, 2, 1, 3),
-        segment_ids=SegmentIds(seg, seg),
-        sm_scale=1.0 / (Dh ** 0.5),  # scale by the REAL head dim
-    )
-    return out.transpose(0, 2, 1, 3)[:, :L, :, :Dh]
+from recommender_tpu.nn.layers import dense, dense_init, layer_norm, lecun_normal, norm_init
 
 
-class TransformerBlock(nn.Module):
-    """MHSA + FFN, each with residual + LayerNorm (post-LN, BST-style)."""
+@dataclasses.dataclass(frozen=True)
+class TransformerBlock:
+    """MHSA + FFN, each with residual + LayerNorm (post-LN, BST-style).
+
+    Params: ``qkv`` (kernel [D, 3, H, Dh]), ``out`` (kernel [H, Dh, D]),
+    ``LayerNorm_0``, ``Dense_0``/``Dense_1`` (the FFN), ``LayerNorm_1``."""
 
     dim: int
     num_heads: int = 2
     ffn_mult: int = 4
-    # None = plain (measured faster at every recommender-scale shape —
-    # module docstring); True opts into the Pallas flash kernel
-    use_flash: Optional[bool] = None
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
-        """x: [B, L, D]; valid: [B, L] (1 = real position, 0 = pad —
-        pads are masked out as attention KEYS)."""
-        B, L, _ = x.shape
+    def init(self, key, x: jnp.ndarray, valid: jnp.ndarray) -> dict:
         H = self.num_heads
         Dh = self.dim // H
-        qkv = nn.DenseGeneral((3, H, Dh), axis=-1, name="qkv")(x)
+        d_in = x.shape[-1]
+        kq, ko, k0, k1 = jax.random.split(key, 4)
+        return {
+            # lecun fan over the flattened kernel, as for a [d_in, 3·H·Dh] dense
+            "qkv": {
+                "kernel": lecun_normal(kq, (d_in, 3 * H * Dh)).reshape(d_in, 3, H, Dh),
+                "bias": jnp.zeros((3, H, Dh)),
+            },
+            "out": {
+                "kernel": lecun_normal(ko, (H * Dh, self.dim)).reshape(H, Dh, self.dim),
+                "bias": jnp.zeros((self.dim,)),
+            },
+            "LayerNorm_0": norm_init(self.dim),
+            "Dense_0": dense_init(k0, self.dim, self.dim * self.ffn_mult),
+            "Dense_1": dense_init(k1, self.dim * self.ffn_mult, self.dim),
+            "LayerNorm_1": norm_init(self.dim),
+        }
+
+    def apply(self, params: dict, x: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
+        """x: [B, L, D]; valid: [B, L] (1 = real position, 0 = pad —
+        pads are masked out as attention KEYS)."""
+        Dh = self.dim // self.num_heads
+        qkv = jnp.einsum("bld,dthe->blthe", x, params["qkv"]["kernel"]) + params["qkv"]["bias"]
         q, k, v = (qkv[..., i, :, :] for i in range(3))  # [B, L, H, Dh]
-        if self.use_flash:
-            o = _flash_mha(q, k, v, valid)
-        else:
-            s = jnp.einsum("bqhd,bkhd->bhqk", q, k) / (Dh ** 0.5)
-            s = jnp.where(valid[:, None, None, :] > 0, s, -1e30)
-            o = jnp.einsum("bhqk,bkhd->bqhd", jax.nn.softmax(s, axis=-1), v)
-        a = nn.DenseGeneral(self.dim, axis=(-2, -1), name="out")(o)
-        x = nn.LayerNorm()(x + a)
-        f = nn.Dense(self.dim * self.ffn_mult)(x)
-        f = nn.relu(f)
-        f = nn.Dense(self.dim)(f)
-        return nn.LayerNorm()(x + f)
+        s = jnp.einsum("bqhd,bkhd->bhqk", q, k) / (Dh ** 0.5)
+        s = jnp.where(valid[:, None, None, :] > 0, s, -1e30)
+        o = jnp.einsum("bhqk,bkhd->bqhd", jax.nn.softmax(s, axis=-1), v)
+        a = jnp.einsum("blhd,hde->ble", o, params["out"]["kernel"]) + params["out"]["bias"]
+        x = layer_norm(params["LayerNorm_0"], x + a)
+        f = jax.nn.relu(dense(params["Dense_0"], x))
+        f = dense(params["Dense_1"], f)
+        return layer_norm(params["LayerNorm_1"], x + f)

@@ -1,46 +1,24 @@
-"""TPU kernels for the embedding hot path (scatter-add gradients).
+"""Embedding backward paths (scatter-add gradients) in plain JAX.
 
-Why: XLA lowers a 213k-row scatter-add (DLRM batch 8192 × 26 features into a
-1M×16 table) to a per-row path — ~22 ms on a v5e chip, slower than the rest
-of the train step combined. This is THE bottleneck the reference never hits
-(its tables are replicated and NCCL-reduced; ours take sparse gradients —
-SURVEY.md §2.7 item 1, BASELINE.json north star).
+The embedding gradient is a scatter-add of the lookup cotangent into the
+table: DLRM at batch 8192 scatters 8192 × 26 = 212,992 rows of width 16
+into a 1M × 16 table every step. This module holds the variants the
+lookups choose between; every one is plain JAX left to XLA:
 
-Measured v5e numbers for every strategy live in
-``benchmarks/bench_kernels.py``; the production path is
-``embedding_lookup`` (fast gather forward + ``padded_scatter_add``
-backward, ~5 ms standalone / ~4 ms fused in the grad step). The Pallas
-scatter-as-matmul kernel below reaches ~4.1 ms for the same shape when the
-id argsort is precomputed (e.g. by the host input pipeline) — about even
-with the fused padded scatter once the cotangent reorder is paid — so it
-stays the injection point for row-sharded shard-local scatters (tile count
-shrinks 1/m per shard) rather than the default full-table path.
+* native ``jnp.zeros((V, D)).at[ids].add(cot)`` — what AD gives for
+  ``jnp.take``;
+* ``native_scatter_add`` — the same, accumulated in at least f32;
+* ``padded_scatter_add`` — the scatter done 64 lanes wide and sliced back
+  (XLA scatters narrow rows slowly on some backends);
+* ``sorted_scatter_add`` — ``jax.ops.segment_sum`` over ids sorted
+  ascending (the dedup backward's two segment-sums and the 2-5M-row
+  window of the lookup backward).
 
-Design — **packed scatter-as-matmul** over a sorted update array:
-
-1. sort update ids ascending (device argsort, or fold in a host-provided
-   permutation via ``order=``);
-2. partition the table into ``row_tile``-row tiles; the sorted updates for
-   tile ``t`` form the contiguous range ``offsets[t]..offsets[t+1]``,
-   covered by ``chunk``-aligned blocks of the update array — no padded
-   stream copy is materialized; a scalar-prefetched block map DMAs blocks
-   straight from the sorted array, and rows spilling across tile
-   boundaries self-mask (their one-hot row never matches);
-3. each grid step builds a one-hot ``[row_tile/pack, chunk]`` mask and a
-   lane-expanded ``[chunk, 128]`` update block (``pack = 128//d_eff`` table
-   rows per 128-lane vector row) and accumulates their product on the MXU
-   into the tile's packed output block — all 128 output lanes live at any
-   width (the unpacked formulation wastes 7/8 of the MXU at d=16);
-4. the packed [v_pad/pack, 128] result reshapes back to [v_pad, d_eff]
-   for free (identical row-major linearization).
-
-Measured (213k rows, D=16, 1M×16, v5e): 12.9 ms naive → 4.35 ms packed
-(f32, device-sorted input) → 4.07 ms bf16 with host-precomputed order,
-including the 1.3 ms cotangent reorder. The padded XLA scatter fused into
-the grads jit remains ~4 ms, so it stays the production default.
-
-Public entry: ``embedding_lookup`` — drop-in ``jnp.take`` with the padded
-scatter as the ``custom_vjp`` backward.
+``embedding_lookup`` is ``jnp.take`` with the padded scatter as its
+``custom_vjp`` backward; ``embedding_lookup_dedup`` drives the backward
+from a host-precomputed dedup plan; ``embedding_take`` serves every other
+lookup. Every backward accumulates in f32 whatever the table dtype. ``chip_smoke.py`` (phase ``kernels``)
+compares every variant with the plain reference on the card and times it.
 """
 from __future__ import annotations
 
@@ -48,228 +26,81 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-ROW_TILE = 8192  # table rows per output block (pre-packing; flat optimum of
-# the benchmarks/bench_kernels.py sweep — 4.8 ms vs 5.6 at 2048 for the
-# DLRM 213k-row shape)
-CHUNK = 1024  # updates per grid step (1024-aligned for 1-D i32 tiling)
-
-_PAD_ID = np.int32(2**30)  # matches no tile row
 
 
-def _packed_scatter_kernel(
-    chunk_tile_ref, first_ref, live_ref, blk_ref, ids_blk, upd_blk, out_ref,
-    *, pack, d_eff, row_tile, chunk, precision
-):
-    """One grid step = one CHUNK-aligned block of updates into one packed
-    output tile.
-
-    Two tricks make this MXU- and DMA-efficient at narrow widths:
-
-    * the output tile packs ``pack = 128 // d_eff`` consecutive table rows
-      per 128-lane vector row, so the one-hot accumulation matmul runs with
-      ALL output lanes live (the naive [ROW_TILE, CHUNK] @ [CHUNK, d]
-      formulation leaves d/128 of the MXU idle — 8× waste at d=16);
-    * input blocks are DMA'd straight out of the sorted update array by a
-      scalar-prefetched block map (``blk_ref``) instead of materializing a
-      chunk-padded copy of the stream in HBM (which costs a ~3.3×-inflated
-      45 MB gather for the DLRM shape). A tile's first/last block may carry
-      rows belonging to neighboring tiles; those ids fall outside
-      ``[row_base, row_base + ROW_TILE)`` so the one-hot row match drops
-      them for free — no explicit validity mask needed.
-    """
-    ci = pl.program_id(0)
-
-    @pl.when(first_ref[ci] == 1)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    @pl.when(live_ref[ci] == 1)
-    def _():
-        packed_tile = row_tile // pack
-        row_base = chunk_tile_ref[ci] * row_tile
-        local = ids_blk[:] - row_base  # [CHUNK]; out-of-tile rows never match
-        prow = local // pack  # packed row inside the tile
-        sub = local - prow * pack  # lane-block slot (id % pack)
-        dtype = upd_blk.dtype
-        rows = jax.lax.broadcasted_iota(jnp.int32, (packed_tile, chunk), 0)
-        one_hot = jnp.where(rows == prow[None, :], 1.0, 0.0).astype(dtype)
-        # expand [CHUNK, d_eff] → [CHUNK, 128]: replicate across lane blocks,
-        # keep only the block selected by sub (pure VPU, no gather)
-        tiled = jnp.concatenate([upd_blk[:]] * pack, axis=1)
-        lane_blk = jax.lax.broadcasted_iota(jnp.int32, (chunk, 128), 1) // d_eff
-        expanded = jnp.where(lane_blk == sub[:, None], tiled, jnp.zeros((), dtype))
-        out_ref[:] += jnp.dot(
-            one_hot, expanded,
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-
-
-def _eff_width(d: int) -> int:
-    """Smallest power-of-two lane-block width ≥ d that divides 128."""
-    w = 8
-    while w < d:
-        w *= 2
-    return w
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("vocab_size", "kernel_dtype", "row_tile", "chunk", "precision"),
-)
+@functools.partial(jax.jit, static_argnames=("vocab_size",))
 def sorted_scatter_add(
     sorted_ids: jnp.ndarray,
     updates: jnp.ndarray,
     vocab_size: int,
     order: jnp.ndarray | None = None,
-    kernel_dtype=jnp.float32,
-    row_tile: int = ROW_TILE,
-    chunk: int = CHUNK,
-    precision=None,
 ) -> jnp.ndarray:
     """Σ updates into a fresh [vocab_size, D] f32 table.
 
     ``sorted_ids`` [N] ascending int32 (entries ≥ vocab_size are dropped).
     ``updates`` [N, D]: already in sorted order when ``order`` is None;
     otherwise in original order and ``order`` [N] is the permutation such
-    that ``updates[order]`` is sorted (one materialized ``jnp.take`` here —
-    composing it into the kernel's block reads instead would turn their
-    quasi-sequential DMA into a random gather, measured ~3 ms slower).
-    A host-precomputed argsort (``data/pipeline.py``) thus skips the device
-    sort and pays only the reorder.
-
-    ``kernel_dtype=jnp.bfloat16`` rounds each update to bf16 before the
-    one-hot accumulation matmul (accumulation itself stays f32 via
-    ``preferred_element_type``) — 2× MXU throughput for ~2^-8 relative
-    rounding on individual gradient contributions.
-
-    ``precision`` feeds the accumulation matmul. The TPU DEFAULT rounds f32
-    operands to bf16 per pass (same ~2^-8 contribution rounding as
-    ``kernel_dtype=bf16``); pass ``jax.lax.Precision.HIGHEST`` for exact-f32
-    accumulation (multi-pass — the dedup'd backward uses it and measures
-    DMA-bound, so the extra passes are ~free at its sizes).
+    that ``updates[order]`` is sorted (one materialized ``jnp.take`` here).
+    A host-precomputed argsort (``data/pipeline.py``) thus skips the
+    device sort and pays only the reorder. Accumulates in f32.
     """
-    n, d = updates.shape
     if order is not None:
         updates = jnp.take(updates, order, axis=0)
-    if d > 128:  # wide tables: XLA's native scatter is already lane-saturated
-        return jnp.zeros((vocab_size, d), jnp.float32).at[sorted_ids].add(updates)
-    d_eff = _eff_width(d)
-    pack = 128 // d_eff
-    if d_eff != d:
-        updates = jnp.pad(updates, ((0, 0), (0, d_eff - d)))
-    # tail-pad so every block index a tile range can produce stays in bounds
-    n_blocks = n // chunk + 2
-    n_pad = n_blocks * chunk
-    ids_p = jnp.concatenate(
-        [sorted_ids.astype(jnp.int32), jnp.full((n_pad - n,), _PAD_ID, jnp.int32)]
+    return jax.ops.segment_sum(
+        updates.astype(jnp.float32), sorted_ids, num_segments=vocab_size,
+        indices_are_sorted=True,
     )
-    upd_p = jnp.concatenate(
-        [updates.astype(kernel_dtype), jnp.zeros((n_pad - n, d_eff), kernel_dtype)]
-    )
-
-    v_pad = ((vocab_size + row_tile - 1) // row_tile) * row_tile
-    num_tiles = v_pad // row_tile
-    # static bound: each tile needs ≤ n_t/CHUNK + 1 blocks (+1 for empties)
-    num_chunks = num_tiles + (n + chunk - 1) // chunk
-
-    tile_bounds = jnp.arange(num_tiles + 1, dtype=jnp.int32) * row_tile
-    offsets = jnp.searchsorted(sorted_ids, tile_bounds, side="left").astype(jnp.int32)
-    n_t = offsets[1:] - offsets[:-1]  # updates per tile
-    b0 = offsets[:-1] // chunk  # first block overlapping the tile's range
-    b1 = (offsets[1:] + chunk - 1) // chunk  # one past the last block
-    chunks_t = jnp.maximum(b1 - b0, 1)  # ≥1 so every output block zero-inits
-    chunk_off = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(chunks_t).astype(jnp.int32)]
-    )  # [T+1]
-
-    ci = jnp.arange(num_chunks, dtype=jnp.int32)
-    tile_of = jnp.clip(
-        jnp.searchsorted(chunk_off, ci, side="right").astype(jnp.int32) - 1,
-        0,
-        num_tiles - 1,
-    )
-    is_real = ci < chunk_off[num_tiles]
-    first = (ci == chunk_off[tile_of]) & is_real
-    within = ci - chunk_off[tile_of]  # block index inside the tile's range
-    live = is_real & (n_t[tile_of] > 0) & (b0[tile_of] + within < b1[tile_of])
-    blk = jnp.clip(b0[tile_of] + within, 0, n_blocks - 1)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,  # chunk→tile, first flags, live flags, block map
-        grid=(num_chunks,),
-        in_specs=[
-            pl.BlockSpec((chunk,), lambda ci, ct, fr, lv, bk: (bk[ci],)),
-            pl.BlockSpec((chunk, d_eff), lambda ci, ct, fr, lv, bk: (bk[ci], 0)),
-        ],
-        out_specs=pl.BlockSpec(
-            (row_tile // pack, 128), lambda ci, ct, fr, lv, bk: (ct[ci], 0)
-        ),
-    )
-    out = pl.pallas_call(
-        functools.partial(
-            _packed_scatter_kernel,
-            pack=pack,
-            d_eff=d_eff,
-            row_tile=row_tile,
-            chunk=chunk,
-            precision=precision,
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((v_pad // pack, 128), jnp.float32),
-    )(
-        tile_of,
-        first.astype(jnp.int32),
-        live.astype(jnp.int32),
-        blk,
-        ids_p,
-        upd_p,
-    )
-    # [v_pad//pack, 128] row-major is bit-identical to [v_pad, d_eff] row-major
-    return out.reshape(v_pad, d_eff)[:vocab_size, :d]
 
 
 def scatter_add_dense(ids: jnp.ndarray, updates: jnp.ndarray, vocab_size: int):
-    """Sort + kernel scatter: the full sparse-grad path (any id shape)."""
+    """Device argsort + ``sorted_scatter_add``: the sorted table gradient
+    for ids of any shape (f32)."""
     flat = ids.reshape(-1).astype(jnp.int32)
     upd = updates.reshape(-1, updates.shape[-1])
     order = jnp.argsort(flat).astype(jnp.int32)
     return sorted_scatter_add(flat[order], upd, vocab_size, order=order)
 
 
+def native_scatter_add(ids: jnp.ndarray, updates: jnp.ndarray, vocab_size: int):
+    """XLA's own scatter-add (what AD gives for ``jnp.take``), accumulated
+    in at least f32: on the GPU a bf16 scatter-add runs as compare-and-swap
+    atomics, far slower than f32, and rounds away most of the sum on the
+    Zipf head rows."""
+    flat = ids.reshape(-1)
+    upd = updates.reshape(-1, updates.shape[-1])
+    upd = upd.astype(jnp.promote_types(upd.dtype, jnp.float32))
+    return jnp.zeros((vocab_size, upd.shape[-1]), upd.dtype).at[flat].add(upd)
+
+
 # ------------------------------------------------- fast narrow-width scatter
-_FAST_WIDTH = 64  # XLA's TPU scatter vectorizes at ≥64 lanes; below it, it
-# falls into a ~4× slower per-row path (measured on v5e:
-# D=16 → 25 ms, D=32 → 30 ms, D=64 → 7 ms for 213k rows into 1M×D).
+_FAST_WIDTH = 64  # rows narrower than this are scattered 64 lanes wide
 
 
 def padded_scatter_add(ids: jnp.ndarray, updates: jnp.ndarray, vocab_size: int):
-    """Scatter-add that sidesteps XLA's slow narrow-row path: zero-pad the
-    update rows to 64 lanes, scatter wide, slice back. 3× faster than the
-    direct scatter for D=16 (7.9 ms vs 25 ms on the DLRM shape)."""
+    """Scatter-add that sidesteps a slow narrow-row scatter: zero-pad the
+    update rows to 64 lanes, scatter wide, slice back.
+
+    Accumulates in at least f32, as ``native_scatter_add`` does."""
     flat = ids.reshape(-1)
     upd = updates.reshape(-1, updates.shape[-1])
+    upd = upd.astype(jnp.promote_types(upd.dtype, jnp.float32))
     d = upd.shape[-1]
     if d >= _FAST_WIDTH:
-        return jnp.zeros((vocab_size, d), updates.dtype).at[flat].add(upd)
+        return native_scatter_add(flat, upd, vocab_size)
     wide = jnp.concatenate(
         [upd, jnp.zeros((upd.shape[0], _FAST_WIDTH - d), upd.dtype)], axis=1
     )
-    grad = jnp.zeros((vocab_size, _FAST_WIDTH), updates.dtype).at[flat].add(wide)
+    grad = jnp.zeros((vocab_size, _FAST_WIDTH), upd.dtype).at[flat].add(wide)
     return grad[:, :d]
 
 
 # ----------------------------------------------------------------- lookup VJP
-# Tables in this shape class (a) trip XLA's fused-graph layout assignment
-# (column-major flip -> 4x slower gather), so the Trainer splits the step
-# (TrainConfig.split_step), and (b) want the padded-width scatter backward.
-# Smaller/wider tables are better served by XLA's native take/scatter inside
-# one fused step — measured on v5e: DIEN 400k x 18 regresses 4.0 -> 6.2 ms
-# with the padded backward, DLRM 1M x 16 improves 14.3 -> 8.9 ms with it.
+# Tables in this shape class (a) can trip XLA's fused-graph layout
+# assignment (column-major flip -> slow gather), so the Trainer splits the
+# step (TrainConfig.split_step), and (b) want the padded-width scatter
+# backward. Smaller/wider tables keep XLA's native take/scatter inside one
+# fused step. The thresholds below were tuned on earlier hardware; tuning
+# them on the current GPU is open work (ROADMAP.md).
 BIG_NARROW_MIN_ELEMS = 8_000_000
 NARROW_MAX_COLS = 32
 
@@ -283,58 +114,39 @@ def is_big_narrow_table(shape) -> bool:
 
 
 # Below this many ids per lookup the padded backward's extra pad/slice
-# copies outweigh the scatter win (measured on v5e, DIEN 400k×18 per-call
-# history lookups: 25.6k ids/call native 6.2 vs padded 9.1 ms/step at
-# b256; 51.2k ids/call native 11.4 vs padded 7.7 at b512; 102k ids/call
-# native 23.9 vs padded 14.0 at b1024).
+# copies outweigh the scatter win.
 PADDED_BWD_MIN_IDS = 32_768
 
-# ROW-COUNT windows for the custom backward (measured 2026-08-21,
-# exp_shard_backward.py --big: 213k Zipf ids, D=16, v5e, standalone):
-#
-#   rows     native   padded   pallas(sorted, incl. device argsort)
-#   312.5k   22.7     4.9      5.5
-#   625k     22.9     5.5      5.8
-#   1M       22*      5.3*     4.8*        (*r2 numbers, same protocol)
-#   2.5M     23.1     21.0     10.3
-#   10M      24.4     44.6     27.9
-#
-# The padded scatter's advantage collapses once the 64-lane destination
-# gets huge (10M rows: 2.56 GB dest — padded is 1.8x WORSE than native),
-# while the Pallas packed scatter-as-matmul takes over in the 2-5M window
-# (2.2x over native at 2.5M). Above ~5M rows nothing beats XLA's native
-# scatter fused into the step.
+# Row-count windows for the custom backward: the 64-lane padded scatter up
+# to PADDED_BWD_MAX_ROWS (its padded destination grows with the table), the
+# sorted scatter up to SORTED_BWD_MAX_ROWS, and XLA's native scatter fused
+# into the step above that.
 PADDED_BWD_MAX_ROWS = 2_000_000
-PALLAS_BWD_MAX_ROWS = 5_000_000
+SORTED_BWD_MAX_ROWS = 5_000_000
 
 
 def use_padded_backward(table_shape, n_ids: int) -> bool:
     """Static per-lookup choice of the custom-VJP backward (padded scatter
-    for tables ≤ PADDED_BWD_MAX_ROWS rows; Pallas sorted scatter in the
+    for tables ≤ PADDED_BWD_MAX_ROWS rows; sorted scatter in the
     2-5M-row window — ``_lookup_bwd`` picks by row count).
 
-    Narrow tables (cols < 64, XLA's slow-scatter regime) take it when this
-    call scatters enough rows that the 4× slow native path dominates the
-    padding overhead. Volume-gated (the Trainer's split step is gated on
-    the same threshold via ``_batch_id_volume``): a small batch into a big
-    narrow table — e.g. MMOE b512's 9.2k ids into the stacked 1.8M×18
-    table — is better served by the native scatter fused into one step
-    (measured 2026-08-19, stacked MMOE b512: volume-gated fused-native
-    4.2 ms vs always-padded+split 6.6 ms; DLRM b8192's 213k-id lookups
-    clear the threshold and keep the padded backward + split step,
-    14.3 → 8.9 ms). Row-gated above (measured table in the constants
-    block): > PALLAS_BWD_MAX_ROWS rows → native fused scatter."""
+    Narrow tables (cols < 64) take it when this call scatters at least
+    PADDED_BWD_MIN_IDS rows (the Trainer's split step is gated on the same
+    threshold via ``_batch_id_volume``): a small batch into a big narrow
+    table keeps the native scatter fused into one step. Tables above
+    SORTED_BWD_MAX_ROWS rows keep the native fused scatter."""
     if len(table_shape) != 2 or table_shape[1] >= _FAST_WIDTH:
         return False
-    if table_shape[0] > PALLAS_BWD_MAX_ROWS:
+    if table_shape[0] > SORTED_BWD_MAX_ROWS:
         return False
     return n_ids >= PADDED_BWD_MIN_IDS
 
 
 @jax.custom_vjp
 def embedding_lookup(table: jnp.ndarray, ids: jnp.ndarray) -> jnp.ndarray:
-    """``jnp.take(table, ids, axis=0)`` with a fast scatter-add backward
-    (padded-width XLA scatter; see ``padded_scatter_add``)."""
+    """``jnp.take(table, ids, axis=0)`` with a row-count-gated scatter-add
+    backward (``padded_scatter_add`` up to PADDED_BWD_MAX_ROWS rows, else
+    ``scatter_add_dense``)."""
     return jnp.take(table, ids, axis=0)
 
 
@@ -345,61 +157,56 @@ def _lookup_fwd(table, ids):
     return jnp.take(table, ids, axis=0), (ids, table.shape[0], proto)
 
 
-def _pallas_available() -> bool:
-    """The packed scatter is a TPU Pallas kernel; on other backends the
-    2-5M-row window falls back to the padded scatter (trace-time check —
-    tests monkeypatch ``pallas_call`` into interpret mode instead)."""
-    return jax.default_backend() == "tpu"
-
-
 def _lookup_bwd(res, cot):
     ids, vocab, proto = res
-    if vocab <= PADDED_BWD_MAX_ROWS or not _pallas_available():
+    if vocab <= PADDED_BWD_MAX_ROWS:
         grad = padded_scatter_add(ids, cot, vocab)
     else:
-        # 2-5M-row window: the padded dest is too large, the Pallas packed
-        # scatter (device argsort + one-hot MXU accumulation) wins 2.2x
-        # over native at 2.5M (constants block). HIGHEST keeps the
-        # accumulation exact f32 (the kernel is DMA-bound at these sizes).
-        cot2 = cot.reshape(-1, cot.shape[-1]).astype(jnp.float32)
-        flat = ids.reshape(-1).astype(jnp.int32)
-        order = jnp.argsort(flat).astype(jnp.int32)
-        grad = sorted_scatter_add(
-            flat[order], cot2, vocab, order=order,
-            precision=jax.lax.Precision.HIGHEST,
-        )
+        grad = scatter_add_dense(ids, cot, vocab)
     return grad.astype(proto.dtype), None
 
 
 embedding_lookup.defvjp(_lookup_fwd, _lookup_bwd)
 
-# A third lookup flavor — backward through ``sorted_scatter_add`` with a
-# host-precomputed id argsort riding in the batch — was built and measured
-# (2026-08-18): standalone the packed kernel beats the padded scatter
-# (4.8 vs 8.1 ms on the DLRM 213k-row shape), but inside the grads jit XLA
-# fuses the pad+scatter into the cotangent producer (~4.8 ms) while the
-# Pallas path pays a 1.3 ms materialized cotangent reorder — net step time
-# tied (925k vs 931k ex/s), so it was dropped. Re-evaluate per-shard
-# (model-parallel tables shrink the live tile count by 1/m) or at D≥32.
+
+@jax.custom_vjp
+def _take_f32_grad(table: jnp.ndarray, ids: jnp.ndarray) -> jnp.ndarray:
+    return jnp.take(table, ids, axis=0)
+
+
+def _take_f32_grad_bwd(res, cot):
+    ids, vocab, proto = res
+    return native_scatter_add(ids, cot, vocab).astype(proto.dtype), None
+
+
+_take_f32_grad.defvjp(_lookup_fwd, _take_f32_grad_bwd)
+
+
+def embedding_take(table: jnp.ndarray, ids: jnp.ndarray) -> jnp.ndarray:
+    """``jnp.take(table, ids, axis=0)`` whose backward accumulates in f32.
+
+    The lookup for tables outside the custom-backward windows. f32 tables
+    keep AD's own scatter, fused into the step; narrower tables (bf16) get
+    ``native_scatter_add`` into an f32 gradient, cast once to the table
+    dtype, instead of AD's scatter in the table dtype."""
+    if jnp.dtype(table.dtype).itemsize >= 4:
+        return jnp.take(table, ids, axis=0)
+    return _take_f32_grad(table, ids)
 
 
 # ------------------------------------------------------------ dedup'd lookup
 # Zipf-skewed CTR ids are repetitive (DLRM b8192: 213k rows -> ~36k unique);
 # scatters pay per ROW, so with a host-precomputed dedup plan
-# (data/dedup.py — perm / slot_sorted / uniq, ~2-4 ms C++ per batch in the
-# producer thread) the backward collapses to
+# (data/dedup.py — perm / slot_sorted / uniq, built in the producer thread)
+# the backward collapses to
 #
 #   d_uniq = sorted_scatter_add(slot_sorted, cot[perm], U_cap)  # segment-sum
 #   grad   = sorted_scatter_add(uniq, d_uniq, V)                # ~36k rows
 #
-# ``sorted_scatter_add``'s cost is destination-write + stream-read bound, so
-# the segment-sum (2.6 MB dest) and the final scatter (36k rows) together
-# undercut the 213k-row padded scatter. Measured: benchmarks/exp_dedup.py.
-#
-# Scope: replicated tables with the batch resident on one device (the
-# headline single-chip path). Under a data-sharded mesh, ``perm`` indexes
-# the GLOBAL flat id stream, so GSPMD would turn the reorder into a
-# cross-device gather — per-shard plans via shard_map are the growth path.
+# Scope: replicated tables with the batch resident on one device. Under a
+# data-sharded mesh, ``perm`` indexes the GLOBAL flat id stream, so GSPMD
+# would turn the reorder into a cross-device gather — per-shard plans via
+# shard_map are the growth path.
 
 
 @jax.custom_vjp
@@ -407,7 +214,7 @@ def embedding_lookup_dedup(table, ids, perm, slot_sorted, uniq):
     """``jnp.take(table, ids, axis=0)`` with a dedup'd scatter-add backward
     driven by a host-precomputed plan (``data.dedup.build_plan``):
     ``perm``/``slot_sorted`` [N = ids.size], ``uniq`` [U_cap] ascending,
-    padded with ids ≥ 2^30 (dropped by the kernel's tile ranges)."""
+    padded with ids ≥ 2^30 (dropped by the segment-sum)."""
     return jnp.take(table, ids, axis=0)
 
 
@@ -420,13 +227,8 @@ def _lookup_dedup_fwd(table, ids, perm, slot_sorted, uniq):
 def _lookup_dedup_bwd(res, cot):
     perm, slot_sorted, uniq, vocab, proto = res
     cot2 = cot.reshape(-1, cot.shape[-1])
-    u_cap = uniq.shape[0]
-    # HIGHEST keeps the one-hot accumulation exact in f32 (TPU DEFAULT
-    # rounds operands to bf16 per pass); both kernels are DMA-bound at
-    # these sizes so the extra passes are ~free (benchmarks/exp_dedup.py).
-    hi = jax.lax.Precision.HIGHEST
-    d_uniq = sorted_scatter_add(slot_sorted, cot2, u_cap, order=perm, precision=hi)
-    grad = sorted_scatter_add(uniq, d_uniq.astype(cot2.dtype), vocab, precision=hi)
+    d_uniq = sorted_scatter_add(slot_sorted, cot2, uniq.shape[0], order=perm)
+    grad = sorted_scatter_add(uniq, d_uniq, vocab)
     return grad.astype(proto.dtype), None, None, None, None
 
 

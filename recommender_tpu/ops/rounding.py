@@ -1,9 +1,8 @@
 """Stochastic rounding f32 → bf16 for low-precision parameter updates.
 
-Why: a bf16-STORED embedding table is a measured 17% DLRM step win on v5e
-(half-byte scatter backward + half-byte Adam table update, no cast traffic
-— benchmarks/RESULTS.md "bf16 table study"), but deterministic
-round-to-nearest loses tiny Adam updates: at DLRM init scale the per-step
+Why: a bf16-STORED embedding table halves the table's bytes in the Adam
+update (chip_smoke.py phase ``train`` times both table dtypes), but
+deterministic round-to-nearest loses tiny Adam updates: at DLRM init scale the per-step
 update (~lr ≈ 1e-3) sits right at the table's bf16 ulp (~0.25·2⁻⁷), so a
 large fraction of every update rounds away and early training slows
 (eval AUC 0.736 → 0.700 at 300 steps). Stochastic rounding makes the
@@ -11,7 +10,7 @@ rounded write UNBIASED — E[sr(x)] = x — so the expected parameter
 trajectory matches f32 and accumulated updates land in expectation even
 when each individual one is sub-ulp. This is the standard fix for
 low-precision optimizer states (the reference never needs it: its tables
-are replicated f32, ``/root/reference/ctr/train.py:64-65``).
+are replicated f32, ``ctr/train.py:64-65``).
 
 Mechanics (bf16 is the upper 16 bits of f32, so truncation IS round-down):
 add a uniform 16-bit integer to the f32 bit pattern, then truncate the low
@@ -20,8 +19,8 @@ probability = (x - down) / (up - down); exactly-representable values are
 untouched (low bits zero → the random add never carries). Non-finite
 values bypass the integer add (adding to an inf/NaN pattern corrupts it).
 
-TPU note: runs on the VPU over the full tensor; threefry bit generation
-for a 1M×16 table costs far less than the table's own HBM read/write.
+Runs elementwise over the full tensor; the noise bits cost far less than
+the table's own HBM read/write.
 """
 from __future__ import annotations
 
@@ -33,9 +32,9 @@ import numpy as np
 def _hash_noise_u16(shape, key: jax.Array) -> jnp.ndarray:
     """Cheap uniform 16-bit noise: murmur3 finalizer over (element index ⊕
     key material). SR needs decorrelated-uniform bits, not crypto-grade
-    randomness; threefry over the full param+moment tree measured ~1 ms of
-    the DLRM b8192 step (benchmarks/exp_bf16_sr.py), the ~10-op finalizer
-    is noise-level. Deterministic per (key, element index)."""
+    randomness, and threefry over the full param+moment tree is a
+    noticeable share of a DLRM step where this ~10-op finalizer is not.
+    Deterministic per (key, element index)."""
     n = int(np.prod(shape)) if shape else 1
     kd = jax.random.key_data(key).astype(jnp.uint32).reshape(-1)
     x = jax.lax.iota(jnp.uint32, n) * jnp.uint32(0x9E3779B9) + kd[0]

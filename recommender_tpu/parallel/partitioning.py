@@ -1,63 +1,98 @@
-"""Param/opt-state partitioning: flax metadata → NamedShardings.
+"""Param/opt-state partitioning: PartitionSpec trees → NamedShardings.
 
 The reference's only distribution story is replicated variables under
-``MirroredStrategy`` (SURVEY.md §2.6). Here, parameters declare their
-layout via ``nn.with_partitioning`` metadata (e.g. embedding tables
-row-sharded over ``model``); everything else is replicated; optimizer
-state mirrors the parameter layout (Adam moments of a row-sharded table
-are row-sharded too, so the update is fully shard-local).
+``MirroredStrategy`` (SURVEY.md §2.6). Here every model names the params
+it shards in ``sharded_params()`` (``{"embedding/embedding":
+P("model", None)}`` — '/'-joined param paths, e.g. embedding tables
+row-sharded over ``model``); ``param_pspecs`` builds the full
+PartitionSpec tree beside the params, replicating everything else.
+Optimizer state mirrors the parameter layout (Adam moments of a
+row-sharded table are row-sharded too, so the update is fully
+shard-local).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
-import flax.linen as nn
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
-def param_pspecs(boxed_variables: Any) -> Any:
-    """PartitionSpec pytree from (possibly boxed) variables."""
-    return nn.get_partition_spec(boxed_variables)
+def path_str(path) -> str:
+    """'/'-joined dict keys of a pytree path."""
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+
+def param_pspecs(params: Any, sharded: dict) -> Any:
+    """PartitionSpec tree for ``params``: ``sharded[path]`` for each
+    '/'-joined path it names, ``P()`` elsewhere. A named path missing from
+    ``params`` is an error (a renamed param must not silently replicate)."""
+    seen = set()
+
+    def spec(path, _):
+        key = path_str(path)
+        if key in sharded:
+            seen.add(key)
+            return sharded[key]
+        return P()
+
+    specs = jax.tree_util.tree_map_with_path(spec, params)
+    missing = set(sharded) - seen
+    if missing:
+        raise KeyError(f"sharded params not in the param tree: {sorted(missing)}")
+    return specs
+
+
+def table_specs(tables: dict) -> dict:
+    """``{prefix: Embedding}`` → ``{prefix/embedding: spec}`` for the
+    partitioned tables — the usual body of a model's ``sharded_params``."""
+    return {
+        f"{prefix}/embedding": emb.spec
+        for prefix, emb in tables.items()
+        if emb.partition is not None
+    }
 
 
 def _to_named(spec_tree: Any, mesh: Mesh) -> Any:
     return jax.tree_util.tree_map(
-        lambda s: NamedSharding(mesh, s if isinstance(s, P) else P()),
-        spec_tree,
-        is_leaf=lambda x: isinstance(x, P),
+        lambda s: NamedSharding(mesh, s), spec_tree, is_leaf=lambda x: isinstance(x, P)
     )
 
 
-def param_shardings(boxed_params: Any, mesh: Mesh) -> Any:
-    return _to_named(param_pspecs(boxed_params), mesh)
+def param_shardings(model, params: Any, mesh: Mesh) -> Any:
+    """NamedSharding tree for ``model``'s ``params`` (arrays or shapes)."""
+    return _to_named(param_pspecs(params, model.sharded_params()), mesh)
 
 
-def validate_divisibility(boxed_params: Any, mesh: Mesh) -> None:
-    """Raise a clear error when a Partitioned param's sharded dim is not
-    divisible by its mesh axis — e.g. restoring a vocab-252 row-sharded
-    table onto ``model=8``. GSPMD would silently pad the shards, and the
-    shard-local lookup/update paths (embedding/sharded.py) would then
-    address phantom rows: a wrong result, not a crash. Checked at
-    ``Trainer.init_state`` so both fresh runs and cross-mesh checkpoint
-    restores fail loudly at state-building time."""
-    for path, leaf in jax.tree_util.tree_flatten_with_path(
-        boxed_params, is_leaf=lambda x: isinstance(x, nn.Partitioned)
-    )[0]:
-        if not isinstance(leaf, nn.Partitioned):
-            continue
-        shape = leaf.value.shape
-        for dim, name in enumerate(leaf.names):
+def model_shardings(model, example: dict, mesh: Mesh, seed: int = 0) -> Any:
+    """``param_shardings`` from shapes alone (no param materialization)."""
+    shapes, _ = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(seed), example))
+    return param_shardings(model, shapes, mesh)
+
+
+def validate_divisibility(params: Any, specs: Any, mesh: Mesh) -> None:
+    """Raise a clear error when a sharded param's dim is not divisible by
+    its mesh axis — e.g. restoring a vocab-252 row-sharded table onto
+    ``model=8``. GSPMD would silently pad the shards, and the shard-local
+    lookup/update paths (embedding/sharded.py) would then address phantom
+    rows: a wrong result, not a crash. Checked at ``Trainer.init_state``
+    so both fresh runs and cross-mesh checkpoint restores fail loudly at
+    state-building time."""
+    flat_specs = jax.tree_util.tree_leaves(specs, is_leaf=lambda x: isinstance(x, P))
+    flat_params = jax.tree_util.tree_flatten_with_path(params)[0]
+    for (path, leaf), spec in zip(flat_params, flat_specs):
+        for dim, name in enumerate(spec):
             if name is None:
                 continue
             axis = mesh.shape[name]
-            if shape[dim] % axis:
-                pstr = jax.tree_util.keystr(path)
+            if leaf.shape[dim] % axis:
                 raise ValueError(
-                    f"param {pstr} dim {dim} (size {shape[dim]}) is sharded "
-                    f"over mesh axis '{name}' (size {axis}) but is not "
-                    f"divisible by it; pad the vocab to a multiple of the "
-                    f"axis size or restore onto a compatible mesh"
+                    f"param {jax.tree_util.keystr(path)} dim {dim} (size "
+                    f"{leaf.shape[dim]}) is sharded over mesh axis '{name}' "
+                    f"(size {axis}) but is not divisible by it; pad the vocab "
+                    f"to a multiple of the axis size or restore onto a "
+                    f"compatible mesh"
                 )
 
 
@@ -70,10 +105,7 @@ def opt_state_shardings(opt_state: Any, params: Any, param_spec: Any, mesh: Mesh
     p_struct = jax.tree_util.tree_structure(params)
 
     def is_params_like(x):
-        try:
-            return jax.tree_util.tree_structure(x) == p_struct
-        except Exception:
-            return False
+        return jax.tree_util.tree_structure(x) == p_struct
 
     def map_subtree(x):
         if is_params_like(x):
@@ -84,12 +116,7 @@ def opt_state_shardings(opt_state: Any, params: Any, param_spec: Any, mesh: Mesh
 
 
 def state_shardings(state, params_sharding, mesh: Mesh):
-    """Shardings for a TrainState: params per metadata, rest replicated-or-mirrored."""
-    import dataclasses
-
-    from recommender_tpu.core.train import TrainState  # circular-safe at call time
-
-    assert isinstance(state, TrainState)
+    """Shardings for a TrainState: params per spec, rest replicated-or-mirrored."""
     rep = NamedSharding(mesh, P())
     pspec = jax.tree_util.tree_map(
         lambda ns: ns.spec, params_sharding, is_leaf=lambda x: isinstance(x, NamedSharding)

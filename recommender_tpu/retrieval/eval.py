@@ -1,6 +1,6 @@
 """Retrieval: full-corpus inference, top-k recommendation, hit-rate.
 
-Replaces ``/root/reference/pinsage/train/evaluation.py`` (numpy argpartition
+Replaces ``pinsage/train/evaluation.py`` (numpy argpartition
 on host) and the Spark map-reduce serving path (``pinsage/inference/*``,
 which never even loads trained weights — ``inference.py:57-64``) with
 on-chip batched matmul + ``lax.top_k`` under jit.
@@ -56,7 +56,7 @@ def full_corpus_reprs(
 
     @jax.jit
     def reprs(block):
-        return model.apply({"params": params}, block, method=model.get_repr)
+        return model.get_repr(params, block)
 
     def put(block):
         if mesh is None:
@@ -71,7 +71,7 @@ def full_corpus_reprs(
         if pad:
             ids = np.concatenate([ids, np.zeros(pad, np.int32)])
         block = sample_block_batch(graph, ids, rng, **sampler_kw).as_dict()
-        r = np.asarray(reprs(put(block)))
+        r = jax.device_get(reprs(put(block)))
         out.append(r[: batch_size - pad])
     return np.concatenate(out, axis=0)
 
@@ -85,7 +85,7 @@ def resolve_seen_format(seen, num_items: int, seen_format: str = "auto") -> bool
     integer array whose width equals the corpus size is AMBIGUOUS — it
     could be a 0/1 int mask (accepted pre-r5) or S==V id lists — and is
     rejected with instructions to pass ``seen_format`` explicitly, instead
-    of being silently reinterpreted (advisor r4 medium finding)."""
+    of being silently reinterpreted."""
     if seen_format in ("mask", "ids"):
         return seen_format == "ids"
     if seen_format != "auto":
@@ -112,8 +112,8 @@ def _reduce_topk(sim, k: int, exact: bool):
     if exact:
         _, idx = jax.lax.top_k(sim, k)
     else:
-        # serving-scale corpora: the TPU partial reduction fuses into the
-        # scoring matmul (19-23x at V=2M - RESULTS.md r4 serving section);
+        # serving-scale corpora: a partial reduction XLA may fuse with the
+        # scoring matmul (exact on backends without an approximate kernel);
         # quality evals keep the exact sort so hit-rate numbers are
         # reduction-independent
         _, idx = jax.lax.approx_max_k(sim, k, recall_target=0.95)

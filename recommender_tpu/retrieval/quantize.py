@@ -1,12 +1,13 @@
-"""Int8-quantized corpus scoring — serving-side TPU optimization.
+"""Int8-quantized corpus scoring — a serving-side optimization.
 
 The retrieval hot loop is a [Q, D] × [D, V] matmul over the full corpus
 (``retrieval/eval.py::_topk_scores``; the reference's Spark re-scoring
 path, ``pinsage/inference/inference.py``, never even loads trained
 weights). At production corpus sizes (millions of items) the matmul is
-MXU-bound and the corpus residency is HBM-bound — both are exactly what
-the v5e's int8 path improves: 394 int8 TOPS vs 197 bf16 TFLOP/s, and a
-4× smaller resident corpus (int8 rows + one f32 scale per item).
+compute-bound and the corpus residency is HBM-bound — both are what an
+int8 path improves: accelerators run int8 matmuls at twice their bf16
+rate, and the resident corpus is 4× smaller (int8 rows + one f32 scale
+per item).
 
 Scheme: symmetric per-row max-abs quantization.
 
@@ -15,11 +16,11 @@ Scheme: symmetric per-row max-abs quantization.
 Scores factor as ``(q_u · q_v) · s_u · s_v``. For a single query row the
 query scale ``s_u > 0`` is a positive constant — it cannot change that
 query's top-k order — so serving computes the int8 matmul in int32 (one
-MXU pass), applies the per-ITEM scale column-wise in f32, and never
+matmul), applies the per-ITEM scale column-wise in f32, and never
 dequantizes the corpus. Quantization error is bounded by the per-row
 resolution (~s_v/2 per coordinate): top-k overlap vs f32 scoring is
-measured in ``tests/test_export.py`` and the v5e throughput win in
-``benchmarks/exp_int8_retrieval.py`` / RESULTS.md.
+measured in ``tests/test_export.py``. The throughput on the GPU is not
+measured yet.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ def quantize_reprs(reprs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 def _scores_int8(q_queries, q_items, item_scale):
     """[Q, D] int8 × [V, D] int8 → [Q, V] f32 item-scaled scores.
 
-    One int8→int32 MXU matmul; the query scale is per-ROW positive so it
+    One int8→int32 matmul; the query scale is per-ROW positive so it
     is dropped (rank-invariant per query). ``item_scale`` re-weights
     columns — required for cross-item comparability."""
     acc = jax.lax.dot_general(
@@ -72,7 +73,7 @@ def recommend_topk_quantized(
     """Int8 counterpart of ``retrieval.eval.recommend_topk``: [U] users'
     latest item ids → [U, k] recommendations, seen items masked, scored
     from the quantized corpus. Used to certify serving-quantization
-    task-metric neutrality (hit-rate, RESULTS.md r4).
+    task-metric neutrality (hit-rate, benchmarks/quality_runs.py).
 
     ``seen``: [U, V] bool (dense/sparse; masked with an elementwise
     ``where`` — fusion-safe) or padded [U, S] seen-id lists (pad -1; the
@@ -140,13 +141,11 @@ def topk_quantized(
 ) -> np.ndarray:
     """Item-to-item top-k over an int8 corpus: [Q] ids → [Q, k] ids.
 
-    Serving default is ``jax.lax.approx_max_k`` — the TPU-native partial
-    reduction that lets XLA fuse the scoring matmul into the reduction
-    instead of materializing (and sorting) the full [Q, V] score matrix:
-    measured 23× over exact top_k at V=2M, D=128 (3.9 vs 88 ms per 1024
-    queries, benchmarks/exp_int8_retrieval.py) at 0.956 end-to-end recall
-    vs exact-f32. ``exact=True`` restores ``lax.top_k`` (bit-exact order,
-    the quality-eval path)."""
+    Serving default is ``jax.lax.approx_max_k`` — a partial reduction that
+    XLA may fuse with the scoring matmul instead of materializing (and
+    sorting) the full [Q, V] score matrix; backends without an approximate
+    kernel compute it exactly. ``exact=True`` restores ``lax.top_k``
+    (bit-exact order, the quality-eval path)."""
     # module-level jit (statics: k/exact/...) — a per-call closure would
     # RETRACE on every invocation and re-transfer the corpus; callers that
     # loop (cli/serve --all) pass device-resident arrays and reuse one
@@ -163,7 +162,7 @@ def _drop_excluded(idx, excluded, k):
     ``k`` (over-fetch clamped to a corpus smaller than k) is padded with
     the ``-1`` no-candidate sentinel, which sorts after real kept ids but
     before excluded ones — the output shape contract never silently
-    shrinks (advisor r5). Score order is preserved (stable argsort on
+    shrinks. Score order is preserved (stable argsort on
     the keep flag).
     The SCATTER-free exclusion pattern: masking the [Q, V] score matrix
     with ``.at[rows, ids].set(-inf)`` breaks XLA's matmul→reduction fusion

@@ -6,7 +6,7 @@ no standalone inference path. This module adds one: restore a training
 checkpoint, jit the forward once, and stream fixed-shape feature batches
 through it at full device throughput (`cli/predict.py` is the entry point).
 
-TPU notes: one compiled forward reused across batches (static shapes — the
+One compiled forward reused across batches (static shapes — the
 last partial batch is padded up and sliced back), batches device_put ahead
 through the same prefetcher the Trainer uses, scores fetched per batch (the
 D2H copy overlaps the next batch's compute through the async dispatch
@@ -24,20 +24,19 @@ def make_scorer(model, params, model_state=None) -> Callable:
     """Jitted ``batch -> scores`` over restored weights.
 
     The weights are passed as a jit ARGUMENT, not closed over: closure
-    arrays become graph constants and XLA picks degenerate layouts for a
-    constant 1M×16 table — measured 6.1 vs 1.9 ms/batch for DLRM b8192
-    (4.4M ex/s) on v5e with the table as an argument.
+    arrays become graph constants, and XLA may pick degenerate layouts for
+    a constant 1M×16 table.
 
     ``model.apply`` output passes through unchanged: [B] probs for CTR
     models, a dict of heads for multi-task models.
     """
-    variables = {"params": params, **(model_state or {})}
+    model_state = model_state or {}
 
     @jax.jit
-    def fwd(variables, batch):
-        return model.apply(variables, batch, train=False)
+    def fwd(params, model_state, batch):
+        return model.apply(params, model_state, batch, train=False)[0]
 
-    return lambda batch: fwd(variables, batch)
+    return lambda batch: fwd(params, model_state, batch)
 
 
 def score_batches(
@@ -49,7 +48,7 @@ def score_batches(
 
     Every batch is padded to ``batch_size`` rows (repeating the last row)
     so the jitted forward compiles exactly once, then sliced back — the
-    standard static-shape serving idiom on TPU.
+    standard static-shape serving idiom under jit.
     """
     chunks: dict[str, list[np.ndarray]] = {}
     for batch in batches:
@@ -65,5 +64,5 @@ def score_batches(
         if not isinstance(out, dict):
             out = {"score": out}
         for k, v in out.items():
-            chunks.setdefault(k, []).append(np.asarray(v)[:n])
+            chunks.setdefault(k, []).append(jax.device_get(v)[:n])
     return {k: np.concatenate(v) for k, v in chunks.items()}

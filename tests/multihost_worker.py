@@ -19,8 +19,7 @@ Modes (argv[4], default "plain"; argv[5] = checkpoint dir for the rest):
               + per-host shard IO), print losses.
 * resume    — restore the collective checkpoint, fast-forward the
               per-host stream by the restored step, train the remaining
-              steps (VERDICT r4 #3: multi-process checkpointing
-              exercised, not just documented).
+              steps.
 * plain+save — plain, but also save at the end (single-process producer
               for cross-process-count restore checks).
 

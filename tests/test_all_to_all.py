@@ -87,13 +87,12 @@ def test_all_to_all_data_sharded_grads(devices8):
 
 def test_overflow_counter_and_planner_capacity(devices8):
     """A skewed batch reports nonzero ``a2a_overflow`` in the train metrics;
-    the planner's measured-skew capacity drives it to zero on the same batch
-    (VERDICT r1 Weak #3 / item 6)."""
+    the planner's measured-skew capacity drives it to zero on the same batch."""
     from recommender_tpu.core.train import TrainConfig, Trainer
     from recommender_tpu.embedding.planner import capacity_factor_from_ids
     from recommender_tpu.models.dlrm import DLRM
     from recommender_tpu.models.tasks import init_model, make_ctr_task
-    from recommender_tpu.parallel.partitioning import param_shardings
+    from recommender_tpu.parallel.partitioning import model_shardings
 
     mesh = make_mesh(MeshSpec(2, 4))
     V, m = 64, 4
@@ -112,10 +111,7 @@ def test_overflow_counter_and_planner_capacity(devices8):
             capacity_factor=capacity_factor,
         )
         loss_fn, eval_fn = make_ctr_task(model)
-        var_shapes = jax.eval_shape(
-            lambda: model.init(jax.random.PRNGKey(0), batch)
-        )
-        pshard = param_shardings(var_shapes["params"], mesh)
+        pshard = model_shardings(model, batch, mesh)
         tr = Trainer(loss_fn, TrainConfig(learning_rate=0.01, split_step=False),
                      mesh=mesh, param_shardings=pshard, eval_fn=eval_fn)
         state = tr.init_state(lambda: init_model(model, batch))
@@ -150,7 +146,7 @@ def test_all_to_all_bf16_table(devices8):
     from recommender_tpu.data.synthetic import SyntheticCTR
     from recommender_tpu.models.dlrm import DLRM
     from recommender_tpu.models.tasks import init_model, make_ctr_task
-    from recommender_tpu.parallel.partitioning import param_shardings
+    from recommender_tpu.parallel.partitioning import model_shardings
 
     gen = SyntheticCTR(vocab_size=128, seed=0)
     batch = gen.sample(32, seed=1)
@@ -159,8 +155,7 @@ def test_all_to_all_bf16_table(devices8):
                  mesh=mesh, capacity_factor=4.0,
                  embed_param_dtype=jnp.bfloat16)
     loss_fn, _ = make_ctr_task(model)
-    variables = model.init(jax.random.PRNGKey(0), batch)
-    pshard = param_shardings(variables["params"], mesh)
+    pshard = model_shardings(model, batch, mesh)
     tr = Trainer(loss_fn, TrainConfig(learning_rate=1e-2), mesh=mesh,
                  param_shardings=pshard)
     state = tr.init_state(lambda: init_model(model, batch))

@@ -25,8 +25,8 @@ def test_bst_forward_shape_and_range():
     gen = SyntheticSequence(num_items=200, num_cats=20, max_len=12)
     batch = _batch(gen, 16, 1)
     m = _model()
-    vs = m.init(jax.random.PRNGKey(0), batch)
-    prob = m.apply(vs, batch)
+    params, ms = m.init(jax.random.PRNGKey(0), batch)
+    prob = m.apply(params, ms, batch)[0]
     assert prob.shape == (16,)
     assert ((prob > 0) & (prob < 1)).all()
 
@@ -44,8 +44,8 @@ def test_bst_pad_positions_are_inert():
     gen = SyntheticSequence(num_items=200, num_cats=20, max_len=10)
     batch = _batch(gen, 8, 2)
     m = _model()
-    vs = m.init(jax.random.PRNGKey(0), batch)
-    out1 = np.asarray(m.apply(vs, batch))
+    params, ms = m.init(jax.random.PRNGKey(0), batch)
+    out1 = np.asarray(m.apply(params, ms, batch)[0])
 
     # widen every history with 6 extra pad columns: same valid content,
     # different sequence length and pad geometry
@@ -56,7 +56,7 @@ def test_bst_pad_positions_are_inert():
         return np.asarray(x)
 
     wide = {k: widen(v) for k, v in batch.items()}
-    out2 = np.asarray(m.apply(vs, wide))
+    out2 = np.asarray(m.apply(params, ms, wide)[0])
     # target moves to a different POSITION id, so allow the position
     # embedding of the target slot to shift the logit — compare instead
     # against a same-length batch whose pad IDs were swapped for other
@@ -64,7 +64,7 @@ def test_bst_pad_positions_are_inert():
     perm = dict(batch)
     # pad positions have item id 0; their CAT ids are 0 too — rewrite the
     # pad region of the cat history (kept id 0 → identical), i.e. no-op
-    out3 = np.asarray(m.apply(vs, perm))
+    out3 = np.asarray(m.apply(params, ms, perm)[0])
     np.testing.assert_array_equal(out1, out3)
     assert out2.shape == out1.shape  # widened batch runs (shape-polymorphic)
 
@@ -79,8 +79,8 @@ def test_bst_attention_mask_blocks_pad_keys():
         batch[k] = np.asarray(batch[k]).copy()
         batch[k][0] = 0  # row 0: empty history
     m = _model()
-    vs = m.init(jax.random.PRNGKey(0), batch)
-    out1 = np.asarray(m.apply(vs, batch))
+    params, ms = m.init(jax.random.PRNGKey(0), batch)
+    out1 = np.asarray(m.apply(params, ms, batch)[0])
     # the masked_mean_pool over an empty history must be finite (guarded
     # denominator) and row 0's prob must not be NaN
     assert np.isfinite(out1).all()

@@ -63,7 +63,7 @@ def test_save_restore_sharded_state(tmp_path, devices8):
     """Checkpoint round-trip with a row-sharded table on a (2,4) mesh."""
     import jax
 
-    from recommender_tpu.parallel.partitioning import param_shardings
+    from recommender_tpu.parallel.partitioning import model_shardings
 
     mesh = make_mesh(MeshSpec(2, 4))
     gen = SyntheticCTR(vocab_size=256, seed=0)
@@ -74,18 +74,14 @@ def test_save_restore_sharded_state(tmp_path, devices8):
     cfg = TrainConfig(learning_rate=1e-3, log_every=1,
                       checkpoint_dir=str(tmp_path / "ckpt"))
     example = {k: v[:8] for k, v in train.items()}
-    variables = model.init(jax.random.PRNGKey(0), example)
-    pshard = param_shardings(variables["params"], mesh)
+    pshard = model_shardings(model, example, mesh)
     trainer = Trainer(loss_fn, cfg, mesh=mesh, param_shardings=pshard, eval_fn=eval_fn)
     state = trainer.init_state(lambda: init_model(model, example))
     it = batch_iterator(train, 128, seed=0, epochs=None)
     state, _ = trainer.fit(state, it, steps=3)
 
-    def _unbox(x):
-        return x.value if hasattr(x, "value") else x
-
-    # the table is genuinely sharded (params carry flax Partitioned boxes)
-    table = _unbox(state.params["embedding"]["embedding"])
+    # the table is genuinely sharded (placed by its PartitionSpec)
+    table = state.params["embedding"]["embedding"]
     spec = table.sharding.spec
     assert spec and spec[0] == "model"
     trainer.save(state)
@@ -93,7 +89,7 @@ def test_save_restore_sharded_state(tmp_path, devices8):
     fresh = trainer.init_state(lambda: init_model(model, example, seed=9))
     restored = trainer.restore(fresh)
     assert int(restored.step) == 3
-    rtable = _unbox(restored.params["embedding"]["embedding"])
+    rtable = restored.params["embedding"]["embedding"]
     np.testing.assert_array_equal(np.asarray(table), np.asarray(rtable))
     # restored table keeps its sharding
     rspec = rtable.sharding.spec
@@ -144,7 +140,7 @@ def _sharded_trainer(tmp_path, mesh_spec, vocab=256):
     """DLRM with a row-sharded table on the given mesh, ckpt dir shared."""
     import jax
 
-    from recommender_tpu.parallel.partitioning import param_shardings
+    from recommender_tpu.parallel.partitioning import model_shardings
 
     mesh = make_mesh(MeshSpec(*mesh_spec))
     gen = SyntheticCTR(vocab_size=vocab, seed=0)
@@ -155,14 +151,13 @@ def _sharded_trainer(tmp_path, mesh_spec, vocab=256):
     cfg = TrainConfig(learning_rate=1e-3, log_every=1,
                       checkpoint_dir=str(tmp_path / "ckpt"))
     example = {k: v[:8] for k, v in train.items()}
-    variables = model.init(jax.random.PRNGKey(0), example)
-    pshard = param_shardings(variables["params"], mesh)
+    pshard = model_shardings(model, example, mesh)
     tr = Trainer(loss_fn, cfg, mesh=mesh, param_shardings=pshard, eval_fn=eval_fn)
     return tr, model, example, train
 
 
 def test_restore_across_meshes(tmp_path, devices8):
-    """Cross-topology restore (VERDICT r3 #5): save a row-sharded state on a
+    """Cross-topology restore: save a row-sharded state on a
     (2,4) mesh, restore onto (1,8), (4,2) and the trivial (8,1) — orbax
     ``StandardRestore`` reshards onto the target state's shardings — and
     training continues matching the uninterrupted same-mesh run. Loss
@@ -171,15 +166,12 @@ def test_restore_across_meshes(tmp_path, devices8):
     ARRAYS are bit-equal."""
     import jax
 
-    def _unbox(x):
-        return x.value if hasattr(x, "value") else x
-
     tr0, model, example, train = _sharded_trainer(tmp_path, (2, 4))
     state = tr0.init_state(lambda: init_model(model, example))
     state, _ = tr0.fit(state, batch_iterator(train, 256, seed=0, epochs=None),
                        steps=3, prefetch=0)
     tr0.save(state)
-    table0 = np.asarray(_unbox(state.params["embedding"]["embedding"]))
+    table0 = np.asarray(state.params["embedding"]["embedding"])
 
     # uninterrupted baseline: 3 more steps on the original mesh
     it = batch_iterator(train, 256, seed=0, epochs=None, start_batch=3)
@@ -191,7 +183,7 @@ def test_restore_across_meshes(tmp_path, devices8):
         fresh = tr.init_state(lambda: init_model(model2, example2, seed=77))
         restored = tr.restore(fresh)
         assert int(restored.step) == 3
-        rtable = _unbox(restored.params["embedding"]["embedding"])
+        rtable = restored.params["embedding"]["embedding"]
         np.testing.assert_array_equal(np.asarray(rtable), table0)
         # restored table lands row-sharded over the TARGET mesh
         assert rtable.sharding.mesh.shape["model"] == model_axis
@@ -266,7 +258,7 @@ import pytest
 
 @pytest.mark.parametrize("workers", [1, 2])
 def test_cli_interrupt_resume_on_disk_shards(tmp_path, capsys, devices8, workers):
-    """interrupted == uninterrupted on the REAL-DATA path (VERDICT r4 #2):
+    """interrupted == uninterrupted on the REAL-DATA path:
     the on-disk npz shard stream fast-forwards on --resume via
     shard_batches(start_batch=), so a run checkpointed at step 4 and
     resumed for 6 more reproduces the uninterrupted 10-step run's final
@@ -320,7 +312,7 @@ def test_cli_resume_rejects_changed_stream_config(tmp_path, capsys, devices8):
     """--resume with a different --prefetch_workers (or seed) than the
     original run fails loudly: the striped multi-worker stream is a
     function of those values, so silently resuming on different striping
-    would train on an unrelated stream (advisor r5)."""
+    would train on an unrelated stream."""
     import pickle
 
     from recommender_tpu.cli.train_ctr import main

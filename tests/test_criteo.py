@@ -64,7 +64,7 @@ def test_shard_roundtrip(tmp_path):
 
 
 def test_shard_batches_start_batch_bit_identical(tmp_path):
-    """Resume fast-forward on the ON-DISK stream (VERDICT r4 #2): a stream
+    """Resume fast-forward on the ON-DISK stream: a stream
     restarted with start_batch=k yields exactly the batches the original
     stream yields from position k — across shard boundaries, with shuffle
     on, and into the second epoch (skipped shards still consume their seed

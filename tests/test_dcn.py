@@ -19,8 +19,8 @@ def test_cross_layer_math():
     m = CrossNetwork(num_layers=1)
     vs = m.init(jax.random.PRNGKey(0), x0)
     out = m.apply(vs, x0)
-    W = vs["params"]["cross_0"]["kernel"]
-    b = vs["params"]["cross_0"]["bias"]
+    W = vs["cross_0"]["kernel"]
+    b = vs["cross_0"]["bias"]
     want = x0 * (x0 @ W + b) + x0
     np.testing.assert_allclose(np.asarray(out), np.asarray(want), rtol=1e-6)
 
@@ -43,13 +43,12 @@ def test_dcn_forward_and_grad():
     gen = SyntheticCTR(vocab_size=64, seed=0)
     batch = gen.sample(16, seed=1)
     model = DCN(vocab_size=64, embed_dim=8, cross_layers=2, deep_units=(32, 16))
-    vs = model.init(jax.random.PRNGKey(0), batch)
-    prob = model.apply(vs, batch)
+    params, ms = model.init(jax.random.PRNGKey(0), batch)
+    prob = model.apply(params, ms, batch)[0]
     assert prob.shape == (16,)
     assert ((prob > 0) & (prob < 1)).all()
     # gradient reaches the embedding table AND every cross layer
-    g = jax.grad(lambda p: jnp.sum(model.apply({"params": p}, batch)))(
-        vs["params"])
+    g = jax.grad(lambda p: jnp.sum(model.apply(p, ms, batch)[0]))(params)
     assert float(jnp.abs(g["embedding"]["embedding"]).sum()) > 0
     assert float(jnp.abs(g["cross"]["cross_1"]["kernel"]).sum()) > 0
 

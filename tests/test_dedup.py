@@ -1,4 +1,4 @@
-"""Host dedup plans + the dedup'd embedding lookup (interpret-mode Pallas).
+"""Host dedup plans + the dedup'd embedding lookup (sorted segment-sums).
 
 The plan contract (data/dedup.py): perm sorts the flat ids ascending
 (stable), slot_sorted is the nondecreasing unique-slot stream, uniq is the
@@ -63,21 +63,8 @@ def test_build_plan_overflow_returns_none():
     assert build_plan(ids, u_cap=50) is None
 
 
-def _interp_pallas(monkeypatch):
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-
-    def interp_call(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(pl, "pallas_call", interp_call)
-
-
-def test_lookup_dedup_forward_and_grad(monkeypatch):
+def test_lookup_dedup_forward_and_grad():
     """embedding_lookup_dedup == plain take forward; grad == scatter-add."""
-    _interp_pallas(monkeypatch)
     from recommender_tpu.ops.embedding_kernels import embedding_lookup_dedup
 
     rng = np.random.default_rng(2)
@@ -153,9 +140,8 @@ def test_with_dedup_plans_attach_and_overflow():
     assert "cat_dedup" not in out_fixed[0]
 
 
-def test_dlrm_grads_match_with_plan(monkeypatch):
+def test_dlrm_grads_match_with_plan():
     """DLRM loss + grads are identical with and without the dedup plan."""
-    _interp_pallas(monkeypatch)
     from recommender_tpu.data.pipeline import with_dedup_plans
     from recommender_tpu.models.dlrm import DLRM
     from recommender_tpu.models.tasks import init_model, make_ctr_task

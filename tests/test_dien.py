@@ -74,7 +74,7 @@ def test_dien_padding_invariance():
     params, ms = init_model(model, batch)
 
     def run(b):
-        out, _ = model.apply({"params": params, **ms}, b)
+        (out, _), _, _ = model.apply(params, ms, b)
         return np.asarray(out)
 
     p1 = run(batch)

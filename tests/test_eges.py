@@ -99,10 +99,10 @@ def test_model_contracts():
         GES(vocab_size=10, cat_vocab=5, brand_vocab=5, embed_dim=4),
         EGES(vocab_size=10, cat_vocab=5, brand_vocab=5, embed_dim=4),
     ]:
-        params, _ = init_model(model, batch)
-        logits = model.apply({"params": params}, batch)
+        params, ms = init_model(model, batch)
+        logits, _, _ = model.apply(params, ms, batch)
         assert logits.shape == (2, 3)
-        hidden = model.apply({"params": params}, batch, method=model.get_hidden)
+        hidden = model.get_hidden(params, batch)
         assert hidden.shape == (2, 4)
 
     # EGES with uniform weight table == GES mean when weights are all equal
@@ -116,8 +116,8 @@ def test_model_contracts():
     e_params["weight_embedding"] = jax.tree_util.tree_map(
         lambda x: np.zeros_like(x), e_params["weight_embedding"]
     )
-    h_ges = ges.apply({"params": g_params}, batch, method=ges.get_hidden)
-    h_eges = eges.apply({"params": e_params}, batch, method=eges.get_hidden)
+    h_ges = ges.get_hidden(g_params, batch)
+    h_eges = eges.get_hidden(e_params, batch)
     np.testing.assert_allclose(np.asarray(h_ges), np.asarray(h_eges), rtol=1e-4, atol=1e-6)
 
 

@@ -47,7 +47,7 @@ def test_sharded_lookup_grad_batch_sharded_matches_dense(devices8):
     'data' axis in shard_map's transpose (each data replica-group scatters
     only its own rows). Direct grad-vs-dense assertion pinning that psum
     independent of any train-loop parity test, so a JAX upgrade changing
-    check_vma transpose semantics fails HERE (advisor r4 low #5)."""
+    check_vma transpose semantics fails HERE."""
     mesh = make_mesh(MeshSpec(data=4, model=2))
     t = _table(v=48, d=4)
     # leading dim 8 divides data=4 → the batch-sharded ids path; duplicate
@@ -96,20 +96,20 @@ def test_embedding_compute_dtype_bf16():
     f32 = Embedding(16, 8)
     b16 = Embedding(16, 8, compute_dtype=jnp.bfloat16)
     vs = f32.init(jax.random.PRNGKey(0), ids)  # identical param tree
-    out32 = f32.apply(vs, ids)
-    out16 = b16.apply(vs, ids)
+    out32, _ = f32.apply(vs, ids)
+    out16, _ = b16.apply(vs, ids)
     assert out16.dtype == jnp.bfloat16
     np.testing.assert_allclose(
         np.asarray(out16, np.float32), np.asarray(out32), rtol=1e-2, atol=1e-2
     )
 
     def loss(v):
-        return jnp.sum(b16.apply(v, ids).astype(jnp.float32) ** 2)
+        return jnp.sum(b16.apply(v, ids)[0].astype(jnp.float32) ** 2)
 
-    g = jax.grad(loss)(vs)["params"]["embedding"]
+    g = jax.grad(loss)(vs)["embedding"]
     assert g.dtype == jnp.float32  # up-cast through the astype transpose
     # duplicate id 3 accumulates 2x its row's cotangent
-    t = np.asarray(vs["params"]["embedding"])
+    t = np.asarray(vs["embedding"])
     np.testing.assert_allclose(np.asarray(g)[3], 4 * t[3], rtol=2e-2, atol=1e-3)
     assert np.all(np.asarray(g)[0] == 0)
 

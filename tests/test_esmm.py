@@ -80,7 +80,7 @@ def test_mmoe_output_contract():
     model = MMOE(vocab_sizes=[10] * 4, embed_dim=4, num_experts=3,
                  expert_units=(8, 4), tower_units=(4, 1))
     params, ms = init_model(model, batch)
-    heads = model.apply({"params": params, **ms}, batch)
+    heads, _, _ = model.apply(params, ms, batch)
     assert set(heads) == {"ctr", "cvr", "ctcvr"}
     np.testing.assert_allclose(
         np.asarray(heads["ctcvr"]),
@@ -163,19 +163,19 @@ def test_feature_embedder_per_table_partition(devices8):
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from flax.core import meta
+    from jax.sharding import PartitionSpec as P
 
     from recommender_tpu.models.esmm import FeatureEmbedder
+    from recommender_tpu.parallel.partitioning import param_pspecs
 
     sizes = (1024, 16)  # first sharded over 'model', second replicated
     emb = FeatureEmbedder(sizes, embed_dim=4, partition=("model", None))
     feats = jnp.asarray(np.random.default_rng(0).integers(0, 16, (8, 2)), jnp.int32)
     variables = emb.init(jax.random.PRNGKey(0), feats)
-    p0 = variables["params"]["feat_0"]["embedding"]
-    p1 = variables["params"]["feat_1"]["embedding"]
-    assert isinstance(p0, meta.Partitioned) and p0.names == ("model", None)
-    assert not isinstance(p1, meta.Partitioned)
-    out = emb.apply(variables, feats)
+    specs = param_pspecs(variables, emb.sharded_params())
+    assert specs["feat_0"]["embedding"] == P("model", None)
+    assert specs["feat_1"]["embedding"] == P()
+    out, _ = emb.apply(variables, feats)
     assert out.shape == (8, 8)
 
 
@@ -209,23 +209,21 @@ def test_stacked_embedder_matches_per_table():
     stacked = FeatureEmbedder(sizes, embed_dim=4, partition=None, stack=True)
     unstacked = FeatureEmbedder(sizes, embed_dim=4, partition=(None,) * 3)
     vs = stacked.init(jax.random.PRNGKey(0), feats)
-    table = vs["params"]["stacked_embedding"]
+    table = vs["stacked_embedding"]
     # split the stacked param into the per-table layout
     offs = np.cumsum([0] + list(sizes))
     vu = {
-        "params": {
-            f"feat_{j}": {"embedding": table[offs[j] : offs[j + 1]]}
-            for j in range(3)
-        }
+        f"feat_{j}": {"embedding": table[offs[j] : offs[j + 1]]}
+        for j in range(3)
     }
     np.testing.assert_allclose(
-        stacked.apply(vs, feats), unstacked.apply(vu, feats), rtol=0, atol=0
+        stacked.apply(vs, feats)[0], unstacked.apply(vu, feats)[0], rtol=0, atol=0
     )
     # init distribution parity: each segment's scale matches a standalone
     # table of the same shape (fan depends on the table, not the stack)
     solo = FeatureEmbedder((13,), embed_dim=4, stack=True).init(
         jax.random.PRNGKey(1), feats[:, 1:2]
-    )["params"]["stacked_embedding"]
+    )["stacked_embedding"]
     seg = np.asarray(table[offs[1] : offs[2]])
     assert abs(seg.std() / np.asarray(solo).std() - 1.0) < 0.35
 
@@ -244,9 +242,9 @@ def test_stacked_embedder_clamps_oov_within_segment():
     ok = jnp.asarray([[3, 5]], jnp.int32)  # in-range maxima
     oov = jnp.asarray([[9, 99]], jnp.int32)  # both out of range
     vs = emb.init(jax.random.PRNGKey(0), ok)
-    np.testing.assert_array_equal(emb.apply(vs, oov), emb.apply(vs, ok))
+    np.testing.assert_array_equal(emb.apply(vs, oov)[0], emb.apply(vs, ok)[0])
     # gradient lands on the clamped rows of each segment, nowhere else
-    g = jax.grad(lambda v: float(0) + jnp.sum(emb.apply(v, oov)))(vs)
-    g = np.asarray(g["params"]["stacked_embedding"])
+    g = jax.grad(lambda v: jnp.sum(emb.apply(v, oov)[0]))(vs)
+    g = np.asarray(g["stacked_embedding"])
     touched = set(np.nonzero(np.abs(g).sum(1))[0].tolist())
     assert touched == {3, 4 + 5}

@@ -33,7 +33,7 @@ def test_serving_bundle_roundtrip(tmp_path):
 
 def test_quantized_bundle_roundtrip_and_recall(tmp_path):
     """Int8 export (retrieval/quantize.py): 4× smaller corpus payload,
-    scores through the int8 MXU path, and on clustered reprs the top-k
+    scores through the int8 matmul path, and on clustered reprs the top-k
     agrees with f32 scoring (quantization error ≪ cluster separation)."""
     rng = np.random.default_rng(1)
     C, per, D = 20, 40, 32
@@ -99,7 +99,7 @@ def test_int8_recommend_idlist_matches_dense():
 
 
 def test_seen_format_explicit_and_ambiguity_guard():
-    """advisor r4 medium: an integer [U, V] 0/1 mask must not be silently
+    """An integer [U, V] 0/1 mask must not be silently
     reinterpreted as padded id lists. auto-sniff raises on the ambiguous
     width==V integer case; seen_format='mask' restores the pre-r5 coercion
     and matches the bool-mask result."""
@@ -129,7 +129,7 @@ def test_seen_format_explicit_and_ambiguity_guard():
 
 def test_overfetch_clamped_to_small_corpus():
     """k + seen-width > V (small corpus / wide padded histories): the
-    over-fetch clamps to V instead of failing in top_k (advisor r4 low #2),
+    over-fetch clamps to V instead of failing in top_k,
     and still excludes every seen id when enough candidates remain."""
     from recommender_tpu.retrieval.eval import recommend_topk
     from recommender_tpu.retrieval.quantize import (
@@ -162,8 +162,8 @@ def test_overfetch_clamped_to_small_corpus():
 
 
 def test_idlist_exclusion_lowering_has_no_scatter():
-    """Fusion witness (VERDICT r4 next-round #6): the 25.3× serving number
-    depends on seen-exclusion staying OVER-FETCH + candidate filtering. The
+    """Fusion witness: serving throughput depends on seen-exclusion staying
+    OVER-FETCH + candidate filtering. The
     regression mode is scatter-masking the [Q, V] score matrix
     (``sim.at[rows, ids].set(-inf)``), which breaks XLA's matmul→reduction
     fusion and re-materializes the score matrix (131 GB OOM at 16k×2M,
@@ -280,7 +280,7 @@ def test_ivf_serve_cli_flags(tmp_path, capsys):
 
 def test_drop_excluded_pads_output_to_k():
     """Corpus smaller than k: the exclusion filter pads with -1 instead of
-    silently shrinking the [Q, k] output contract (advisor r5)."""
+    silently shrinking the [Q, k] output contract."""
     import jax.numpy as jnp
 
     from recommender_tpu.retrieval.quantize import _drop_excluded

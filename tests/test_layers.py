@@ -37,7 +37,7 @@ def test_dot_interaction(self_int, skip):
     rng = np.random.default_rng(1)
     x = rng.normal(size=(3, 6, 4)).astype(np.float32)
     layer = DotInteraction(self_interaction=self_int, skip_gather=skip)
-    out = layer.apply({}, jnp.asarray(x))
+    out = layer(jnp.asarray(x))
     grid = np.einsum("bfd,bgd->bfg", x, x)
     k = 0 if self_int else 1
     tri = np.triu(np.ones((6, 6), bool), k=k)
@@ -45,7 +45,7 @@ def test_dot_interaction(self_int, skip):
         want = np.where(tri[None], grid, 0.0).reshape(3, 36)
     else:
         want = np.stack([grid[b][tri] for b in range(3)])
-    # layer computes the pairwise grid in bf16 on TPU → ~1e-2 relative error
+    # layer computes the pairwise grid in bf16 → ~1e-2 relative error
     np.testing.assert_allclose(np.asarray(out), want, rtol=3e-2, atol=3e-2)
     assert out.shape[1] == (36 if skip else tri.sum())
 
@@ -140,7 +140,7 @@ def test_gru_scan_vs_numpy():
     mask = jnp.asarray((rng.random((3, 6)) < 0.8).astype(np.float32))
     variables = layer.init(jax.random.PRNGKey(0), x, mask)
     out = np.asarray(layer.apply(variables, x, mask))
-    want = _np_gru(np.asarray(x), np.asarray(mask), variables["params"], 7)
+    want = _np_gru(np.asarray(x), np.asarray(mask), variables, 7)
     np.testing.assert_allclose(out, want, rtol=1e-4, atol=1e-4)
 
 

@@ -2,12 +2,11 @@
 
 Adam is invariant to uniform *gradient* scaling, so the transform must
 multiply the post-optimizer update. These tests pin that behavior and the
-whole-component path matching (including through flax Partitioned boxes).
+whole-component path matching (including on row-sharded params).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
-import flax.linen as nn
 
 from recommender_tpu.core.train import TrainConfig, make_optimizer
 
@@ -72,20 +71,28 @@ def test_component_match_not_substring():
     )
 
 
-def test_matches_through_partitioned_boxes():
-    boxed = {
-        "id_embedding": {"table": nn.Partitioned(jnp.ones((4, 3)), names=("model", None))},
+def test_matches_through_partitioned_boxes(devices8):
+    """A row-sharded table (placed by its PartitionSpec on a model-sharded
+    mesh) is matched by path like any other param."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from recommender_tpu.core.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(data=2, model=4))
+    sharded = {
+        "id_embedding": {"table": jax.device_put(
+            jnp.ones((8, 3)), NamedSharding(mesh, P("model", None)))},
         "other": jnp.ones((2,)),
     }
-    grads = jax.tree.map(lambda p: jnp.full_like(p, 1.0), boxed)
-    base = _one_step(TrainConfig(optimizer="sgd", learning_rate=1.0), boxed, grads)
+    grads = jax.tree.map(lambda p: jnp.full_like(p, 1.0), sharded)
+    base = _one_step(TrainConfig(optimizer="sgd", learning_rate=1.0), sharded, grads)
     scaled = _one_step(
         TrainConfig(optimizer="sgd", learning_rate=1.0, lr_scales={"id_embedding": 2.0}),
-        boxed,
+        sharded,
         grads,
     )
     np.testing.assert_allclose(
-        scaled["id_embedding"]["table"].value,
-        2.0 * base["id_embedding"]["table"].value,
+        scaled["id_embedding"]["table"],
+        2.0 * base["id_embedding"]["table"],
     )
     np.testing.assert_allclose(scaled["other"], base["other"])

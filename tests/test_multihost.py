@@ -1,4 +1,4 @@
-"""Multi-host runtime entry point (VERDICT r3 missing #2 / next #3).
+"""Multi-host runtime entry point.
 
 Three layers of coverage:
 
@@ -133,7 +133,7 @@ def _run_pair(port, env, mode=None, ckpt_dir=None):
 
 
 def test_two_process_checkpoint_resume(tmp_path):
-    """Multi-process checkpointing EXERCISED (VERDICT r4 #3): both
+    """Multi-process checkpointing EXERCISED: both
     processes of a 2-process gloo mesh train 2 steps, orbax-save
     COLLECTIVELY, a fresh 2-process run restores + fast-forwards its
     per-host stream + trains 2 more — and the stitched trajectory matches

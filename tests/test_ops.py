@@ -1,4 +1,4 @@
-"""Embedding kernels: padded scatter parity and Pallas scatter (interpret mode)."""
+"""Embedding backward paths: padded and sorted scatter parity, row/volume gates."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -6,7 +6,6 @@ import numpy as np
 from recommender_tpu.ops.embedding_kernels import (
     embedding_lookup,
     padded_scatter_add,
-    sorted_scatter_add,
 )
 
 
@@ -49,18 +48,10 @@ def test_embedding_lookup_fwd_and_grad():
     np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref), rtol=1e-5)
 
 
-def test_pallas_sorted_scatter_interpret(monkeypatch):
-    """Run the Pallas scatter-as-matmul kernel in interpreter mode on CPU."""
-    from jax.experimental import pallas as pl
+def test_sorted_scatter_matches_numpy():
+    """The sorted scatter (segment-sum over ascending ids) equals np.add.at."""
     import recommender_tpu.ops.embedding_kernels as ek
 
-    orig = pl.pallas_call
-
-    def interp_call(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(pl, "pallas_call", interp_call)
     rng = np.random.default_rng(3)
     V, D, N = 5000, 16, 3000
     ids = np.sort(rng.integers(0, V, N).astype(np.int32))
@@ -71,44 +62,29 @@ def test_pallas_sorted_scatter_interpret(monkeypatch):
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4, atol=1e-4)
 
 
-def test_pallas_packed_scatter_order_and_odd_width(monkeypatch):
-    """order= path (host-argsort folded into the stream gather) and a width
-    that needs lane-block padding (D=18 -> d_eff=32)."""
-    from jax.experimental import pallas as pl
+def test_sorted_scatter_order_and_odd_width():
+    """order= path (host argsort folded in as one reorder) at an odd width
+    (D=18) and the DLRM width (D=16); out-of-range pad ids are dropped."""
     import recommender_tpu.ops.embedding_kernels as ek
 
-    orig = pl.pallas_call
-
-    def interp_call(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(pl, "pallas_call", interp_call)
     rng = np.random.default_rng(4)
     for D in (18, 16):
         V, N = 4100, 2500
         ids = rng.integers(0, V, N).astype(np.int32)
+        ids[:7] = 2**30  # dedup-plan padding: beyond any vocab
         upd = rng.normal(size=(N, D)).astype(np.float32)
         order = np.argsort(ids, kind="stable").astype(np.int32)
         got = ek.sorted_scatter_add(
             jnp.asarray(ids[order]), jnp.asarray(upd), V, order=jnp.asarray(order)
         )
         want = np.zeros((V, D), np.float32)
-        np.add.at(want, ids, upd)
+        np.add.at(want, ids[7:], upd[7:])
         np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4, atol=1e-4)
 
 
-def test_scatter_add_dense_matches_numpy(monkeypatch):
-    from jax.experimental import pallas as pl
+def test_scatter_add_dense_matches_numpy():
     import recommender_tpu.ops.embedding_kernels as ek
 
-    orig = pl.pallas_call
-
-    def interp_call(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(pl, "pallas_call", interp_call)
     rng = np.random.default_rng(5)
     V, D, N = 3000, 8, 1700
     ids = rng.integers(0, V, (N,)).astype(np.int32)
@@ -120,10 +96,9 @@ def test_scatter_add_dense_matches_numpy(monkeypatch):
 
 
 def test_use_padded_backward_gate():
-    """Per-lookup padded-backward selection (v5e crossover measurements in
-    ops/embedding_kernels.py): purely volume-gated for narrow tables — a
-    small scatter into a big narrow table fuses better natively (stacked
-    MMOE b512 measurement, 2026-08-19) — wide tables never."""
+    """Per-lookup padded-backward selection (ops/embedding_kernels.py):
+    purely volume-gated for narrow tables — a small scatter into a big
+    narrow table keeps the native scatter fused — wide tables never."""
     from recommender_tpu.ops.embedding_kernels import (
         PADDED_BWD_MIN_IDS,
         use_padded_backward,
@@ -139,30 +114,18 @@ def test_use_padded_backward_gate():
     assert not use_padded_backward((400_000,), 10_000_000)  # not a table
 
 
-def test_row_count_gates_and_pallas_window_backward(monkeypatch):
-    """The custom backward is ROW-gated too (exp_shard_backward --big,
-    2026-08-21): padded ≤2M rows, Pallas sorted scatter in the 2-5M
-    window, native above. Gate logic + the Pallas-branch gradient
-    (interpret mode, constants shrunk to keep CPU interpret fast)."""
-    from jax.experimental import pallas as pl
-
+def test_row_count_gates_and_sorted_window_backward(monkeypatch):
+    """The custom backward is ROW-gated too: padded ≤2M rows, sorted
+    scatter in the 2-5M window, native above. Gate logic + the
+    sorted-branch gradient (constants shrunk to keep the CPU run small)."""
     import recommender_tpu.ops.embedding_kernels as ek
 
     # gate: >5M-row narrow tables go native even at huge id volume
     assert not ek.use_padded_backward((10_000_000, 16), 1_000_000)
     assert ek.use_padded_backward((2_500_000, 16), ek.PADDED_BWD_MIN_IDS)
 
-    orig = pl.pallas_call
-
-    def interp_call(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(pl, "pallas_call", interp_call)
-    # steer a small table through the pallas branch of _lookup_bwd
-    # (incl. past the backend guard, since pallas_call is interpreted here)
+    # steer a small table through the sorted branch of _lookup_bwd
     monkeypatch.setattr(ek, "PADDED_BWD_MAX_ROWS", 100)
-    monkeypatch.setattr(ek, "_pallas_available", lambda: True)
     rng = np.random.default_rng(5)
     V, D, N = 4000, 16, 2000
     table = jnp.asarray(rng.normal(size=(V, D)), jnp.float32)

@@ -1,8 +1,7 @@
 """Grad coverage of the padded-scatter shard-local backward.
 
 `embedding/sharded.py::_masked_gather` routes through the padded custom VJP
-only for shards >= PADDED_BWD_MIN_SHARD_ROWS (measured crossover,
-benchmarks/exp_shard_backward.py) — CPU-mesh tests use tiny shards, so
+only for shards >= PADDED_BWD_MIN_SHARD_ROWS — CPU-mesh tests use tiny shards, so
 without forcing the gate the custom path would go untested. These tests
 lower the gate to 0 and check both exchange strategies' grads still match
 plain AD of a replicated take.

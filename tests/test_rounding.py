@@ -1,9 +1,8 @@
 """Stochastic rounding (ops.rounding) + SR-aware Adam (core.optim).
 
 The property chain these pin: sr is unbiased -> sub-ulp updates land in
-expectation -> a bf16-stored table trains like f32 (the 17% DLRM step win
-becomes quality-neutral — benchmarks/exp_bf16_sr.py for the on-chip
-fingerprints)."""
+expectation -> a bf16-stored table trains like f32 (chip_smoke.py phase
+``train`` runs both table dtypes on the GPU)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,28 +123,20 @@ def test_sub_ulp_updates_land_in_expectation():
 
 
 def test_trainer_auto_enables_sr_for_bf16_params():
-    import flax.linen as nn
-
-    class Tiny(nn.Module):
-        dtype: jnp.dtype
-
-        @nn.compact
-        def __call__(self, batch):
-            t = self.param("table", nn.initializers.normal(), (16, 4), self.dtype)
-            return jnp.take(t, batch["ids"], axis=0).astype(jnp.float32).sum(-1)
+    def apply(params, batch):
+        t = params["table"]
+        return jnp.take(t, batch["ids"], axis=0).astype(jnp.float32).sum(-1)
 
     def make(dtype):
-        model = Tiny(dtype=dtype)
         batch = {"ids": np.zeros((8,), np.int32), "label": np.zeros((8,), np.float32)}
 
         def loss_fn(params, ms, b, rng, train):
-            out = model.apply({"params": params}, b)
+            out = apply(params, b)
             return (out - b["label"]) ** 2, {}, ms
 
         tr = Trainer(loss_fn, TrainConfig(learning_rate=1e-2))
-        state = tr.init_state(
-            lambda: (model.init(jax.random.PRNGKey(0), batch)["params"], {})
-        )
+        table = 0.01 * jax.random.normal(jax.random.PRNGKey(0), (16, 4), dtype)
+        state = tr.init_state(lambda: ({"table": table}, {}))
         return tr, state, batch
 
     tr16, st16, batch = make(jnp.bfloat16)
@@ -189,28 +180,24 @@ def test_accum_grads_accumulate_in_f32_for_bf16_params():
     """accum_steps>1 with a bf16 table: microbatch grads sum in f32 (a
     bf16 accumulator would lose sub-ulp contributions), and the accum step
     tracks the single-batch step closely."""
-    import flax.linen as nn
+    def apply(params, batch):
+        t = params["table"]
+        return jnp.take(t, batch["ids"], axis=0).astype(jnp.float32).sum(-1)
 
-    class Tiny(nn.Module):
-        @nn.compact
-        def __call__(self, batch):
-            t = self.param("table", nn.initializers.normal(0.5), (32, 4),
-                           jnp.bfloat16)
-            return jnp.take(t, batch["ids"], axis=0).astype(jnp.float32).sum(-1)
-
-    model = Tiny()
     rng = np.random.default_rng(0)
     batch = {"ids": rng.integers(0, 32, 64).astype(np.int32),
              "label": rng.normal(size=64).astype(np.float32)}
+    def init():  # a fresh table per run: the train step donates its state
+        table = 0.5 * jax.random.normal(jax.random.PRNGKey(0), (32, 4), jnp.bfloat16)
+        return {"table": table}, {}
 
     def loss_fn(params, ms, b, key, train):
-        out = model.apply({"params": params}, b)
+        out = apply(params, b)
         return (out - b["label"]) ** 2, {}, ms
 
     def run(accum):
         tr = Trainer(loss_fn, TrainConfig(learning_rate=1e-2, accum_steps=accum))
-        state = tr.init_state(
-            lambda: (model.init(jax.random.PRNGKey(0), batch)["params"], {}))
+        state = tr.init_state(init)
         state, m = tr._train_step(state, tr.put_batch(batch), jax.random.PRNGKey(1))
         return np.asarray(state.params["table"], np.float32), float(m["loss"])
 

@@ -1,4 +1,4 @@
-"""The 10M-vocab row-sharded DLRM configuration end-to-end (VERDICT r3 #4).
+"""The 10M-vocab row-sharded DLRM configuration end-to-end.
 
 Growth story for the reference's replicated 1M×16 table
 (``ctr/train.py:64-65``): at 10M rows (640 MB f32 table + 1.3 GB Adam
@@ -8,8 +8,8 @@ backward (``embedding/sharded.py::_masked_gather`` /
 ``_local_gather_bwd``) then picks its kernel PER SHARD SIZE:
 
 * 10M/8 = 1.25M rows/shard → padded 64-lane scatter (the [300k, 2M] window)
-* 10M/4 = 2.5M rows/shard  → Pallas packed scatter (2–5M window, TPU;
-  padded fallback off-TPU)
+* 10M/4 = 2.5M rows/shard  → sorted scatter (device argsort +
+  segment-sum, the 2–5M window)
 * 10M/1 = 10M rows        → XLA native scatter fused into the step
 
 The lowered per-shard HLO is the witness for each choice (the gate is a
@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 
 import recommender_tpu.embedding.sharded as sh
-import recommender_tpu.ops.embedding_kernels as ek
 from recommender_tpu.core.mesh import MeshSpec, make_mesh
 
 V10M, D = 10_000_000, 16
@@ -93,31 +92,13 @@ def test_backward_gate_padded_window_m8(devices8):
     assert (1_250_000, D) not in dests, dests
 
 
-def test_backward_gate_pallas_window_m4(devices8, monkeypatch):
-    """2.5M rows/shard ∈ (2M, 5M]: the Pallas sorted path is chosen on TPU
-    (witnessed here by patching the backend gate + interpret-mode pallas:
-    the lowered HLO carries the id sort and NO padded scatter), and the
-    padded fallback is chosen off-TPU (unpatched control)."""
+def test_backward_gate_sorted_window_m4(devices8):
+    """2.5M rows/shard ∈ (2M, 5M]: the sorted path is chosen on every
+    backend — the lowered HLO carries the id sort and NO padded scatter."""
     mesh = make_mesh(MeshSpec(2, 4))
-
-    # control: CPU backend → padded fallback even in the 2–5M window
-    assert (2_500_000, 64) in _f32_scatter_dests(_lower_a2a_grad(mesh, 4))
-
-    # patched: pretend TPU + interpret-mode pallas → sorted path
-    from jax.experimental import pallas as pl
-
-    real_call = pl.pallas_call
-
-    def interp_call(*a, **kw):
-        kw.pop("compiler_params", None)
-        kw["interpret"] = True
-        return real_call(*a, **kw)
-
-    monkeypatch.setattr(ek, "_pallas_available", lambda: True)
-    monkeypatch.setattr(ek.pl, "pallas_call", interp_call)
-    hlo_tpu = _lower_a2a_grad(mesh, 4)
-    assert (2_500_000, 64) not in _f32_scatter_dests(hlo_tpu)
-    assert "sort" in hlo_tpu  # the device argsort feeding sorted_scatter_add
+    hlo = _lower_a2a_grad(mesh, 4)
+    assert (2_500_000, 64) not in _f32_scatter_dests(hlo)
+    assert "sort" in hlo  # the device argsort feeding sorted_scatter_add
 
 
 def test_backward_gate_native_above_5m(devices8):
@@ -165,7 +146,7 @@ def test_psum_lookup_shard_local_backward(devices8):
         cot = jax.ShapeDtypeStruct((B, 26, D), jnp.float32)
 
         def loss(p, i, w):
-            return jnp.sum(model.apply({"params": p}, i) * w)
+            return jnp.sum(model.apply(p, i)[0] * w)
 
         comp = jax.jit(jax.grad(loss)).lower(params, ids, cot).compile().as_text()
         return {
@@ -195,7 +176,7 @@ def test_run_one_step_10m_sharded(devices8):
     )
     from recommender_tpu.models.dlrm import DLRM
     from recommender_tpu.models.tasks import init_model, make_ctr_task
-    from recommender_tpu.parallel.partitioning import param_shardings
+    from recommender_tpu.parallel.partitioning import model_shardings
 
     mesh = make_mesh(MeshSpec(1, 8))
     gen = SyntheticCTR(vocab_size=V10M, seed=0)
@@ -212,8 +193,7 @@ def test_run_one_step_10m_sharded(devices8):
                  top_units=(32, 1), partition=plan.partition,
                  lookup_mode="a2a", mesh=mesh, capacity_factor=cap)
     loss_fn, eval_fn = make_ctr_task(model)
-    var_shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), batch))
-    pshard = param_shardings(var_shapes["params"], mesh)
+    pshard = model_shardings(model, batch, mesh)
     tr = Trainer(loss_fn, TrainConfig(learning_rate=1e-3, split_step=False),
                  mesh=mesh, param_shardings=pshard, eval_fn=eval_fn)
     state = tr.init_state(lambda: init_model(model, batch))

@@ -143,8 +143,7 @@ def test_grad_accumulation_on_mesh(devices8):
 
 def test_grad_accumulation_rejects_dedup_plans():
     """Dedup plans index the whole-batch id stream; slicing them into
-    microbatches silently corrupts the table gradient (advisor round-1
-    high finding) — the engine must fail loudly instead."""
+    microbatches silently corrupts the table gradient — the engine must fail loudly instead."""
     import jax
     import jax.numpy as jnp
     import pytest

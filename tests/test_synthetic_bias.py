@@ -1,4 +1,4 @@
-"""SyntheticMultiTask selection-bias regime (VERDICT r3 #2): the planted
+"""SyntheticMultiTask selection-bias regime: the planted
 mechanism checks that make the ESMM quality benchmark discriminate the
 Base two-model protocol from full-space multi-task training. Training
 runs that realize the separation live in benchmarks/quality_runs.py

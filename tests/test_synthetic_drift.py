@@ -1,5 +1,5 @@
 """SyntheticInterestDrift: the planted ORDER mechanism that makes the
-sequence quality benchmark discriminate BASE/DIN/DIEN (VERDICT r3 #1).
+sequence quality benchmark discriminate BASE/DIN/DIEN.
 
 The certification is oracle-based, not training-based: the bag-match
 oracle is the ceiling for any permutation-invariant history pooler

@@ -1,6 +1,6 @@
 """SyntheticMultiInterest: the planted SET-MEMBERSHIP mechanism that
 separates DIN from BASE (the middle link of the reference's mechanism
-ladder, ``dien/layers.py:76-204``; VERDICT r3 #1).
+ladder, ``dien/layers.py:76-204``).
 
 Unlike the drift regime (information-theoretic separation: poolers are
 capped by the bag oracle), here EVERY architecture shares the same perfect

@@ -1,7 +1,6 @@
 """End-to-end: DLRM/DeepFM on synthetic Criteo reach an AUC floor, on an
 8-device (data×model) mesh — the round-trip the reference only exercises
 manually on GPUs."""
-import jax
 import numpy as np
 import pytest
 
@@ -12,7 +11,7 @@ from recommender_tpu.data.synthetic import SyntheticCTR
 from recommender_tpu.models.deepfm import DeepFM
 from recommender_tpu.models.dlrm import DLRM
 from recommender_tpu.models.tasks import init_model, make_ctr_task
-from recommender_tpu.parallel.partitioning import param_shardings
+from recommender_tpu.parallel.partitioning import model_shardings
 
 
 def _run_ctr(model, mesh, steps=120, batch=256):
@@ -23,8 +22,7 @@ def _run_ctr(model, mesh, steps=120, batch=256):
     cfg = TrainConfig(learning_rate=3e-3, eval_every=0, log_every=1000)
 
     example = {k: v[:8] for k, v in train.items()}
-    variables = model.init(jax.random.PRNGKey(0), example)
-    pshard = param_shardings(variables["params"], mesh)
+    pshard = model_shardings(model, example, mesh)
     trainer = Trainer(loss_fn, cfg, mesh=mesh, param_shardings=pshard, eval_fn=eval_fn)
 
     def init_fn():
@@ -72,8 +70,7 @@ def test_dlrm_sharded_matches_replicated(devices8):
         )
         loss_fn, eval_fn = make_ctr_task(model)
         example = {k: v[:8] for k, v in train.items()}
-        variables = model.init(jax.random.PRNGKey(0), example)
-        pshard = param_shardings(variables["params"], mesh)
+        pshard = model_shardings(model, example, mesh)
         trainer = Trainer(
             loss_fn, TrainConfig(learning_rate=1e-3, log_every=1),
             mesh=mesh, param_shardings=pshard, eval_fn=eval_fn,

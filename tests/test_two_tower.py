@@ -28,7 +28,7 @@ def test_inbatch_softmax_loss_math():
     params, ms = init_model(m, batch)
     loss_fn, _ = make_two_tower_task(m)
     per_ex, aux, _ = loss_fn(params, ms, batch, jax.random.PRNGKey(0), False)
-    u, v = m.apply({"params": params}, batch)
+    (u, v), _, _ = m.apply(params, ms, batch)
     logits = np.asarray(u @ v.T) / m.temperature
     want = -np.log(np.exp(logits) / np.exp(logits).sum(1, keepdims=True))
     np.testing.assert_allclose(
@@ -40,8 +40,8 @@ def test_reprs_are_unit_norm():
     m = _model()
     batch = {"user_id": np.arange(5, dtype=np.int32),
              "item_id": np.arange(5, dtype=np.int32)}
-    params, _ = init_model(m, batch)
-    u, v = m.apply({"params": params}, batch)
+    params, ms = init_model(m, batch)
+    (u, v), _, _ = m.apply(params, ms, batch)
     np.testing.assert_allclose(np.linalg.norm(np.asarray(u), axis=1), 1.0,
                                rtol=1e-5)
     np.testing.assert_allclose(np.linalg.norm(np.asarray(v), axis=1), 1.0,
@@ -53,8 +53,7 @@ def test_corpus_reprs_match_direct_apply():
     batch = {"user_id": np.zeros(4, np.int32), "item_id": np.zeros(4, np.int32)}
     params, _ = init_model(m, batch)
     corpus = corpus_item_reprs(m, params, 40, batch_size=16)
-    direct = np.asarray(m.apply(
-        {"params": params}, jnp.arange(40), method=m.item_repr))
+    direct = np.asarray(m.item_repr(params, jnp.arange(40)))
     # tolerance: the tower MLP computes in bf16 (nn/mlp.py), and matmul
     # tiling differs between batch shapes → ~1e-3 accumulation noise
     np.testing.assert_allclose(corpus, direct, atol=5e-3)
@@ -83,14 +82,13 @@ def test_two_tower_learns_communities(devices8):
     state, _ = tr.fit(state, it, steps=800)
 
     reprs = corpus_item_reprs(m, state.params, g.num_items)
-    uq = np.asarray(m.apply({"params": state.params},
-                            jnp.arange(g.num_users), method=m.user_repr))
+    uq = np.asarray(m.user_repr(state.params, jnp.arange(g.num_users)))
     recs = recommend_topk_from_queries(uq, reprs, seen, k=10)
     hr = hit_rate(recs, ground_truth_matrix(test_item, g.num_items))
     # ceiling: the held-out item is 1 of ~14 unseen intra-community items,
     # so perfect community recovery gives hit@10 ≈ 10/14 ≈ 0.7; random is
     # ~0.05. 800 steps lands ~0.35 — this asserts LEARNING (7× random),
-    # the quality-grade number is the TPU quality run's job
+    # the quality-grade number is the on-device quality run's job
     assert hr > 0.25, hr
     # seen exclusion holds
     for u in range(0, g.num_users, 37):
